@@ -1,0 +1,294 @@
+"""Windowed graph sketching for the index build (host route).
+
+Counterpart of groot_tpu/index/window.py, host route only: every path row
+of every graph is sketched by the native runtime (`native.window_sketch`, a
+van Herk sliding min with run detection), or by the numpy golden
+`_window_sketch_np` when the native library is absent. The device window
+sketch of the reference (`window_sketches`, `_device_sketch_blocked`) is not
+ported yet.
+
+Reference: GrootGraph.WindowGraph (src/graph/graph.go:229-396) slides a
+w-bp window along every path with stride 1, KHF-sketches each window,
+merges runs of consecutive identical sketches (MergeSpan) and merges
+identical sketches across paths at the same node+offset. Reference quirks
+reproduced (see tests/test_index.py):
+  * the FINAL merge-run of each path is dropped unless it is the only run
+    (graph.go:298-338);
+  * ContainedNodes counts are per-BASE tallies accumulated over every window
+    of the run (graph.go:326-328);
+  * cross-path merging only applies at identical (first node, offset) with an
+    identical sketch; MergeSpan keeps the max (graph.go:349-388).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from groot_tpu.graph.grootgraph import GrootGraph
+from groot_tpu.io import native
+
+from ..graph.pack import PackedPaths, pack_graph_paths
+from ..ops import nthash
+
+
+# ---------------------------------------------------------------------------
+# Key — the graph-window record (lshe.Key, src/lshe/lshe.go:17-28)
+# ---------------------------------------------------------------------------
+@dataclass
+class Key:
+    graph_id: int
+    node: int                      # first node in the window
+    offset: int                    # offset of the window within that node
+    contained_nodes: Dict[int, float]  # nodeID -> per-base tally
+    ref: List[int]                 # path IDs containing this window
+    sketch: np.ndarray             # uint64 [s]
+    merge_span: int = 0
+    window_size: int = 0
+    freq: float = 0.0
+    rc: bool = False
+
+
+def sketch_graphs_soa(
+    graphs: List[GrootGraph], window_size: int, kmer_size: int, sketch_size: int
+) -> List[Dict[str, np.ndarray]]:
+    """Batched WindowGraph over many graphs: ALL path rows of all graphs are
+    flattened onto one row axis and sketched in one native pass that keeps
+    only the run-start sketches; returns one merge soa per graph
+    (_merge_windows_soa)."""
+    packs = [pack_graph_paths(g) for g in graphs]
+    for g, packed in zip(graphs, packs):
+        if (packed.lengths < window_size).any():
+            raise ValueError("graph contains sequence < window size")
+        g.num_windows = int((packed.lengths - window_size + 1).sum())
+        g.num_distinct_sketches = 0
+        g.max_span = 0
+
+    all_rows = [
+        (gi, pi)
+        for gi, packed in enumerate(packs)
+        for pi in range(len(packed.path_ids))
+    ]
+    Lmax = max(
+        (int(p.lengths.max()) for p in packs if len(p.lengths)), default=1
+    )
+    codes = np.full((len(all_rows), Lmax), 4, dtype=np.uint8)
+    lens = np.zeros(len(all_rows), dtype=np.int64)
+    for r, (gi, pi) in enumerate(all_rows):
+        ln = int(packs[gi].lengths[pi])
+        codes[r, :ln] = packs[gi].codes[pi, :ln]
+        lens[r] = ln
+    res = native.window_sketch(codes, lens, kmer_size, sketch_size, window_size)
+    path_runs: Dict[Tuple[int, int], Tuple[int, np.ndarray, np.ndarray]] = {}
+    if res is not None:
+        _rows, cols, sk, row_counts = res
+        base = 0
+        for r, (gi, pi) in enumerate(all_rows):
+            n = int(row_counts[r])
+            nw = int(packs[gi].lengths[pi]) - window_size + 1
+            path_runs[(gi, pi)] = (
+                nw,
+                cols[base : base + n].astype(np.int64),
+                sk[base : base + n],
+            )
+            base += n
+    else:  # no native library: numpy golden per row
+        for gi, pi in all_rows:
+            packed = packs[gi]
+            ln = int(packed.lengths[pi])
+            nw = ln - window_size + 1
+            sk = _window_sketch_np(
+                packed.codes[pi, :ln], kmer_size, sketch_size, window_size
+            )
+            change = np.ones(nw, dtype=bool)
+            change[1:] = (sk[1:] != sk[:-1]).any(axis=1)
+            cols = np.flatnonzero(change)
+            path_runs[(gi, pi)] = (nw, cols.astype(np.int64), sk[cols])
+
+    out: List[Dict[str, np.ndarray]] = []
+    for gi, (graph, packed) in enumerate(zip(graphs, packs)):
+        runs = [path_runs[(gi, pi)] for pi in range(len(packed.path_ids))]
+        out.append(_merge_windows_soa(graph, packed, runs, window_size))
+    return out
+
+
+def _window_sketch_np(codes: np.ndarray, k: int, s: int, w: int) -> np.ndarray:
+    """All stride-1 window sketches of one row, golden numpy (van Herk
+    sliding-min over the multihash matrix). u64 [nw, s]."""
+    h = nthash.multihash_np(
+        nthash.canonical_hashes_np(codes, k), k, s
+    )  # [nk, s] u64
+    nk = h.shape[0]
+    m = w - k + 1
+    nw = len(codes) - w + 1
+    n_pad = (-nk) % m
+    if n_pad:
+        h = np.concatenate(
+            [h, np.full((n_pad, s), np.uint64(0xFFFFFFFFFFFFFFFF))]
+        )
+    nb = h.shape[0] // m
+    blk = h.reshape(nb, m, s)
+    pref = np.minimum.accumulate(blk, axis=1).reshape(nb * m, s)
+    suff = np.minimum.accumulate(blk[:, ::-1], axis=1)[:, ::-1].reshape(
+        nb * m, s
+    )
+    idx = np.arange(nw)
+    return np.minimum(suff[idx], pref[idx + m - 1])
+
+
+def _merge_windows_soa(
+    graph: GrootGraph,
+    packed: PackedPaths,
+    runs: List[Tuple[int, np.ndarray, np.ndarray]],
+    window_size: int,
+) -> Dict[str, np.ndarray]:
+    """Run merging + cross-path merge, vectorized, emitting the per-graph
+    struct-of-arrays directly (lshe._KeysView materialises Key objects
+    lazily). Reference semantics (graph.go:298-388): the tail run of a path
+    is dropped unless it is the only run; cross-path merging applies at
+    identical (first node, offset) with an identical sketch — contained-node
+    tallies add, refs append in path order, merge_span keeps the max;
+    distinct sketches at the same (node, offset) become separate windows
+    suffixed -0, -1, ... in first-occurrence order, and windows emit grouped
+    by (node, offset) in first-occurrence order."""
+    r_node_l: List[np.ndarray] = []
+    r_off_l: List[np.ndarray] = []
+    r_span_l: List[np.ndarray] = []
+    r_path_l: List[np.ndarray] = []
+    r_sk_l: List[np.ndarray] = []
+    cn_node_l: List[np.ndarray] = []
+    cn_val_l: List[np.ndarray] = []
+    cn_cnt_l: List[np.ndarray] = []
+    for pi, path_id in enumerate(packed.path_ids):
+        nw, run_starts, run_sketches = runs[pi]
+        segs = packed.segs[pi]
+        run_ends = np.append(run_starts[1:] - 1, nw - 1)
+
+        # reference tail-run behavior: the final run is only emitted when it
+        # is the path's only run (graph.go:335-338)
+        n_runs = len(run_starts)
+        m = n_runs - 1 if n_runs > 1 else n_runs
+
+        a = run_starts[:m].astype(np.int64)
+        b = run_ends[:m].astype(np.int64)
+        r_node_l.append(segs[a].astype(np.int64))
+        r_off_l.append(packed.offsets[pi][a].astype(np.int64))
+        r_span_l.append(b - a)
+        r_path_l.append(np.full(m, path_id, dtype=np.int64))
+        r_sk_l.append(run_sketches[:m])
+
+        # per-base tallies of ALL runs of the path in one pass
+        sl = b - a + window_size
+        starts = np.concatenate(([0], np.cumsum(sl[:-1])))
+        rep = np.repeat(np.arange(m), sl)
+        pos = np.arange(int(sl.sum()), dtype=np.int64) - starts[rep] + a[rep]
+        wts = (
+            np.minimum(pos, b[rep])
+            - np.maximum(pos - window_size + 1, a[rep]) + 1
+        ).astype(np.float64)
+        nodes = segs[pos].astype(np.int64)
+        pair = (rep.astype(np.int64) << np.int64(32)) | nodes
+        uk, inv = np.unique(pair, return_inverse=True)
+        csum = np.bincount(inv, weights=wts)
+        cn_node_l.append(uk & np.int64(0xFFFFFFFF))
+        cn_val_l.append(csum)
+        cn_cnt_l.append(
+            np.diff(
+                np.searchsorted(
+                    (uk >> np.int64(32)).astype(np.int64), np.arange(m + 1)
+                )
+            ).astype(np.int64)
+        )
+
+    if not r_node_l or sum(len(x) for x in r_node_l) == 0:
+        raise ValueError(
+            f"no sketches produced after windowing graph seqs: {graph.get_ref_ids()}"
+        )
+    r_node = np.concatenate(r_node_l)
+    r_off = np.concatenate(r_off_l)
+    r_span = np.concatenate(r_span_l)
+    r_path = np.concatenate(r_path_l)
+    r_sk = np.concatenate(r_sk_l)
+    r_cn_cnt = np.concatenate(cn_cnt_l)
+    r_cn_node = np.concatenate(cn_node_l)
+    r_cn_val = np.concatenate(cn_val_l)
+    M = len(r_node)
+
+    # ---- cross-path grouping -------------------------------------------
+    # sketch-groups: identical (node, offset, sketch) merge into one window
+    comp = np.empty((M, r_sk.shape[1] + 2), dtype=np.uint64)
+    comp[:, 0] = r_node.astype(np.uint64)
+    comp[:, 1] = r_off.astype(np.uint64)
+    comp[:, 2:] = r_sk
+    cv = np.ascontiguousarray(comp).view(
+        np.dtype((np.void, comp.dtype.itemsize * comp.shape[1]))
+    ).ravel()
+    _, g_first, ginv = np.unique(cv, return_index=True, return_inverse=True)
+    G = len(g_first)
+    # key-base groups: same (node, offset) regardless of sketch
+    kb = (r_node << np.int64(32)) | r_off
+    _, kb_first, kb_inv = np.unique(kb, return_index=True, return_inverse=True)
+
+    # emission order: key-bases by first occurrence (dict-insertion order),
+    # then sketch-groups by first occurrence within the key-base (-i order)
+    g_kb_first = kb_first[kb_inv[g_first]]
+    order = np.lexsort((g_first, g_kb_first))
+    kb_sorted = g_kb_first[order]
+    new_kb = np.ones(G, dtype=bool)
+    new_kb[1:] = kb_sorted[1:] != kb_sorted[:-1]
+    ar = np.arange(G)
+    i_idx = ar - np.maximum.accumulate(np.where(new_kb, ar, 0))
+
+    # members of each group, original (= path) order within the group
+    mo = np.argsort(ginv, kind="stable")
+    counts = np.bincount(ginv, minlength=G).astype(np.int64)
+    gptr = np.concatenate(([0], np.cumsum(counts)))
+    span_max = np.maximum.reduceat(r_span[mo], gptr[:-1])
+
+    # refs: member path ids per group, in final emission order
+    counts_o = counts[order]
+    ref_ptr = np.concatenate(([0], np.cumsum(counts_o)))
+    g_seq = np.repeat(order, counts_o)
+    within = np.arange(int(counts_o.sum()), dtype=np.int64) - np.repeat(
+        ref_ptr[:-1], counts_o
+    )
+    ref_ids = r_path[mo[gptr[g_seq] + within]]
+
+    # contained nodes: sum tallies per (group, node), ascending node
+    e_run = np.repeat(np.arange(M), r_cn_cnt)
+    e_g = ginv[e_run].astype(np.int64)
+    combo = (e_g << np.int64(32)) | r_cn_node
+    uc, uinv = np.unique(combo, return_inverse=True)
+    uval = np.bincount(uinv, weights=r_cn_val)
+    uc_g = (uc >> np.int64(32)).astype(np.int64)
+    uc_node = uc & np.int64(0xFFFFFFFF)
+    gb = np.searchsorted(uc_g, np.arange(G + 1))
+    cn_cnt_g = np.diff(gb).astype(np.int64)
+    cn_cnt_o = cn_cnt_g[order]
+    cn_ptr = np.concatenate(([0], np.cumsum(cn_cnt_o)))
+    g_seq2 = np.repeat(order, cn_cnt_o)
+    within2 = np.arange(int(cn_cnt_o.sum()), dtype=np.int64) - np.repeat(
+        cn_ptr[:-1], cn_cnt_o
+    )
+    src2 = gb[g_seq2] + within2
+    cn_seg = uc_node[src2]
+    cn_val = uval[src2]
+
+    graph.num_distinct_sketches = G
+    graph.max_span = int(span_max.max()) if G else 0
+    first_o = g_first[order]
+    return {
+        "w_node": r_node[first_o],
+        "w_off": r_off[first_o].astype(np.int32),
+        "w_merge_span": span_max[order].astype(np.int32),
+        "w_key_i": i_idx.astype(np.int64),
+        "sketches": r_sk[first_o].copy(),
+        "cn_ptr": cn_ptr,
+        "cn_seg": cn_seg,
+        "cn_val": cn_val,
+        "ref_ptr": ref_ptr,
+        "ref_ids": ref_ids,
+    }
+
