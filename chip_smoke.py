@@ -7,23 +7,34 @@ Phases, any failure exits non-zero:
   1. preflight: torch/CUDA/nvcc/triton versions, the card's name and power
      limit, and the native host runtime (which must load);
   2. build: nvcc compiles groot_tpu_torch/csrc/*.cu for sm_90a;
-  3. kernel parity: each kernel bit-equal to its plain PyTorch version on
-     the card — the KHF sketch at the main path's batch (B=2048 k31 s20
-     L150), at B=4096 (k31 s20 L150 and k51 s30 L100) and on 40 kb contigs,
-     also against the native sketcher and the numpy golden; the read-hash
-     and seed-scan kernels on the rows of one real batch of phase 4 — each
-     timed beside its plain version with CUDA events;
-  4. end to end: a synthetic clustered ARG database at the scale of
-     arg-annot.90 (583 clusters, ~1,700 alleles, 500-1,500 bp, <= 10%
-     divergent) indexed at w150 k31 s20 by `groot_tpu_torch.cli index`, and
-     120,000 ARG-dense 150 bp reads aligned by the CLI's `align` on the
-     device engine (--device cuda), then by the host `hash` engine; the two
-     must agree on stats, node weights, BAM records, pruned paths and the
-     report, and every kernel must have launched during the device run;
-  5. trace: the device run once more under torch.profiler, for the card's
-     busy share of the align wall time and each kernel's device time.
-The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches, errors and times.
+  3. sketch parity: the KHF-sketch kernel bit-equal to its plain PyTorch
+     version, the native sketcher and the numpy golden at the main path's
+     batch (B=2048 k31 s20 L150), at B=4096 (k31 s20 L150 and k51 s30 L100)
+     and on 40 kb contigs, timed beside its plain version with CUDA events;
+  4. index: a synthetic clustered ARG database at the scale of arg-annot.90
+     (583 clusters, ~1,700 alleles, 500-1,500 bp, <= 10% divergent) indexed
+     at w150 k31 s20 by `groot_tpu_torch.cli index --device cuda` (the
+     window-sketch kernel) and again on the CPU (the native runtime): the
+     two indexes must be equal array for array; then the kernel bit-equal
+     to its plain version and to the native runtime on the database's path
+     rows, and timed;
+  5. align: 120,000 ARG-dense 150 bp reads (named as bbmap's randomreads
+     names them) aligned by the CLI's `align` on the device engine (--device
+     cuda), then by the host `hash` engine; the two must agree on stats,
+     node weights, BAM records, pruned paths and the report. The read-hash
+     and seed-scan kernels are held against their plain versions on the
+     rows of one real batch, and timed;
+  6. haplotype: `haplotype --device cuda` (the EM kernel) and `--device
+     cpu` on the device run's graphs call the same alleles; the kernel
+     gives its plain version's iteration counts (on the card and on the
+     CPU) and alphas within 1e-5 relative, and is timed;
+  7. accuracy: the `accuracy` command scores the device run's BAM;
+  8. trace: index, align and haplotype on the card once more under
+     torch.profiler, for the card's busy share of each command's wall time
+     and each kernel's device time.
+Every kernel must launch in the run of its command (4, 5 or 6), counted
+from 0 just before it. The last line is {"ok": true, "device": {...}}; the
+line before it lists the kernels with their launches, errors and times.
 """
 
 from __future__ import annotations
@@ -193,28 +204,95 @@ def make_data(work: str, seed: int) -> str:
     clusters = synth.make_clusters(rng, N_CLUSTERS)
     synth.write_msa_dir(clusters, os.path.join(work, "msa"))
     alleles = synth.alleles_of(clusters)
-    reads = synth.sample_reads(rng, alleles, N_READS)
+    reads, which, starts = synth.sample_reads(rng, alleles, N_READS)
+    names = synth.allele_names(clusters)
     fq = os.path.join(work, "reads.fq")
-    synth.write_fastq(reads, fq)
+    synth.write_fastq(reads, fq, origins=([names[i] for i in which], starts))
     _say(f"data: {len(clusters)} clusters, {len(alleles)} alleles, "
          f"{len(reads)} reads of 150 bp ({time.time() - t0:.1f}s)")
     return fq
 
 
-def build_index(work: str, dev) -> None:
+def _launches(names) -> dict:
+    from groot_tpu_torch import _build
+
+    counts = {n: _build.KERNELS[n].launches for n in names}
+    _say("launches:", json.dumps(counts))
+    for n, c in counts.items():
+        _check(c > 0, f"kernel {n} was not launched on its command's path")
+    return counts
+
+
+def _index(work: str, out: str, device: str) -> float:
     from groot_tpu_torch import cli
-    from groot_tpu_torch.index.lshe import ContainmentIndex
 
     t0 = time.time()
     rc = cli.main([
-        "index", "-m", os.path.join(work, "msa"), "-i", os.path.join(work, "idx"),
+        "index", "-m", os.path.join(work, "msa"), "-i", os.path.join(work, out),
         "-w", str(W), "-k", str(K), "-s", str(S),
-        "--log", os.path.join(work, "index.log"), "--device", dev.type,
+        "--log", os.path.join(work, "index.log"), "--device", device,
     ])
-    _check(rc == 0, "index failed")
-    dt = time.time() - t0
-    n = len(ContainmentIndex.load(os.path.join(work, "idx", "groot.lshe")).sketches)
-    _say(f"index: {n} window sketches in {dt:.2f}s")
+    _check(rc == 0, f"index --device {device} failed")
+    return time.time() - t0
+
+
+def build_index(work: str, dev) -> dict:
+    """`index --device cuda` (the window-sketch kernel), then the native
+    CPU route on the same MSAs: the two indexes must be equal."""
+    from groot_tpu_torch import _build
+    from groot_tpu_torch.index.lshe import ContainmentIndex
+
+    _build.reset_counts()
+    dt = _index(work, "idx", dev.type)
+    launches = _launches(["window_sketch"])
+    cpu_dt = _index(work, "idx-cpu", "cpu")
+    a = ContainmentIndex.load(os.path.join(work, "idx", "groot.lshe"))
+    b = ContainmentIndex.load(os.path.join(work, "idx-cpu", "groot.lshe"))
+    _check(a.window_keys == b.window_keys, "index window keys differ")
+    for name, arr in b.soa.items():
+        _check(np.array_equal(a.soa[name], arr), f"index soa {name} differs")
+    _say(f"index --device {dev.type}: {len(a.sketches)} window sketches in "
+         f"{dt:.2f}s; --device cpu (native) {cpu_dt:.2f}s; the two indexes "
+         f"are equal ({len(b.soa)} arrays)")
+    return launches
+
+
+def window_parity(work: str, dev) -> dict:
+    """The window-sketch kernel vs its plain version and the native runtime
+    on every path row of the database, timed."""
+    from groot_tpu.config import Info
+    from groot_tpu.io import native
+
+    from groot_tpu_torch.graph.pack import pack_graph_paths
+    from groot_tpu_torch.index import window
+    from groot_tpu_torch.pipeline.index_pipeline import build_graphs, find_msa_files
+
+    info = Info(kmer_size=K, sketch_size=S, window_size=W)
+    graphs = build_graphs(info, find_msa_files(os.path.join(work, "msa")))
+    packs = [pack_graph_paths(g) for g in graphs if not g.masked]
+    _rows, codes, lens = window.path_rows(packs)
+    c = torch.from_numpy(codes).to(dev)
+    v = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    got = window.window_run_starts(c, v, K, S, W)
+    plain = window.window_run_starts_torch(c, v, K, S, W)
+    _sync(dev)
+    got_np = [t.cpu().numpy() for t in got]
+    for name, a, b in zip(("rows", "cols", "sketches", "row counts"), got_np,
+                          (t.cpu().numpy() for t in plain)):
+        _check(np.array_equal(a.astype(np.int64), b.astype(np.int64)),
+               f"window_sketch {name}: kernel != plain")
+    got_np[2] = got_np[2].view(np.uint64)
+    err = _max_abs_err(got_np[2], plain[2].cpu().numpy().view(np.uint64))
+    want = native.window_sketch(codes, lens, K, S, W)
+    for name, a, b in zip(("rows", "cols", "sketches", "row counts"), got_np, want):
+        _check(np.array_equal(a, b), f"window_sketch {name}: kernel != native")
+    ms = _time_ms(lambda: window.window_run_starts(c, v, K, S, W), dev)
+    pms = _time_ms(lambda: window.window_run_starts_torch(c, v, K, S, W), dev, 5)
+    nw = int((lens - W + 1).clip(min=0).sum())
+    _say(f"window_sketch on {len(lens)} path rows (<= {codes.shape[1]} bp, "
+         f"{nw} windows, {len(got_np[0])} run starts): equal to plain/native; "
+         f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
 
 
 def phase_a_parity(work: str, fq: str, dev) -> dict:
@@ -303,44 +381,77 @@ def align_and_report(work: str, fq: str, engine: str, device: str):
     return res, bam, out.getvalue(), dt
 
 
-def traced_device_run(work: str, fq: str, dev, untraced_s: float) -> None:
-    """The device-engine align once more under torch.profiler: the card's
-    busy share of the align command's wall time (the union of the device
-    intervals of every kernel and copy) and each port kernel's device
-    time. Prints "not measured" when the profiler records no device
-    activity."""
+# the device functions each kernel's entry point launches (trace names)
+KERNEL_FUNCS = {
+    "khf_sketch": ("khf_sketch_kernel",),
+    "read_hash": ("read_hash_kernel",),
+    "seed_scan": ("seed_scan_kernel",),
+    "window_sketch": ("window_sketch_kernel", "window_scan_kernel",
+                      "window_compact_kernel"),
+    "em_batched": ("em_batched_kernel",),
+}
+
+
+def _traced(fn):
+    """Run fn under torch.profiler: (wall s, busy s = the union of the
+    device intervals of every kernel and copy, device events, {kernel:
+    (launches, device us)})."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _res, _bam, _rows, dt = align_and_report(work, fq, "device", dev.type)
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if not spans:
-        _say("trace: device busy share not measured (no device events)")
-        return
-    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy_us += cur_e - cur_s
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy_us = 0.0
+    if spans:
+        cur_s, cur_e = spans[0]
+        for a, b in spans[1:]:
+            if a > cur_e:
+                busy_us += cur_e - cur_s
+                cur_s, cur_e = a, b
+            else:
+                cur_e = max(cur_e, b)
+        busy_us += cur_e - cur_s
     per_kernel = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for name in ("khf_sketch", "read_hash", "seed_scan"):
-            if f"{name}_kernel" in e.name:
+    for e in dev_events:
+        for name, funcs in KERNEL_FUNCS.items():
+            if any(f in e.name for f in funcs):
                 n, us = per_kernel.get(name, (0, 0.0))
                 per_kernel[name] = (n + 1, us + e.time_range.elapsed_us())
-    _say(f"trace: align {dt:.2f}s under the profiler (untraced {untraced_s:.2f}s); "
-         f"device busy {busy_us / 1e6:.4f}s = {100 * busy_us / 1e6 / dt:.3f}% "
-         f"of the align wall time over {len(spans)} device events")
+    return dt, busy_us / 1e6, len(spans), per_kernel
+
+
+def traced_runs(work: str, fq: str, dev) -> None:
+    """index, align (device engine) and haplotype on the card once more,
+    each under torch.profiler: the card's busy share of the command's wall
+    time and each port kernel's device time. Prints "not measured" when
+    the profiler records no device activity."""
+    runs = {
+        "index": lambda: _index(work, "idx-traced", dev.type),
+        "align": lambda: align_and_report(work, fq, "device", dev.type),
+        "haplotype": lambda: _haplotype(work, "haplo-traced", dev.type),
+    }
+    per_kernel = {}
+    for cmd, fn in runs.items():
+        dt, busy, n_events, kern = _traced(fn)
+        if not n_events:
+            _say(f"trace {cmd}: {dt:.2f}s; device busy share not measured "
+                 "(no device events)")
+            continue
+        _say(f"trace {cmd}: {dt:.2f}s under the profiler; device busy "
+             f"{busy:.4f}s = {100 * busy / dt:.3f}% of the wall time over "
+             f"{n_events} device events")
+        per_kernel.update(kern)
     _say("trace: port kernels (launches, device ms):", json.dumps(
         {k: [n, round(us / 1e3, 4)] for k, (n, us) in sorted(per_kernel.items())}))
+    if per_kernel:
+        _check(set(per_kernel) == set(KERNEL_FUNCS),
+               f"trace: kernels missing from the trace: "
+               f"{sorted(set(KERNEL_FUNCS) - set(per_kernel))}")
 
 
 def _bam_keys(path):
@@ -357,16 +468,13 @@ def end_to_end(work: str, fq: str, dev) -> dict:
 
     _build.reset_counts()
     res, dev_bam, dev_rows, dev_s = align_and_report(work, fq, "device", dev.type)
-    launches = {name: k.launches for name, k in _build.KERNELS.items()}
+    launches = _launches(["khf_sketch", "read_hash", "seed_scan"])
     st = res.stats
     _say(f"device run: {st.received} reads, {st.mapped} mapped, "
          f"{st.alignment_count} alignments in {dev_s:.2f}s = "
          f"{st.received / dev_s:.0f} reads/s (align command, setup included)")
     _say("device stage_times:", json.dumps(
         {k: round(v, 4) for k, v in sorted(st.stage_times.items())}))
-    _say("launches in the device run:", json.dumps(launches))
-    for name, n in launches.items():
-        _check(n > 0, f"kernel {name} was not launched on the main path")
 
     host, host_bam, host_rows, host_s = align_and_report(work, fq, "hash", "cpu")
     _say(f"hash run: {host_s:.2f}s = {host.stats.received / host_s:.0f} reads/s")
@@ -381,7 +489,101 @@ def end_to_end(work: str, fq: str, dev) -> dict:
     _say(f"device == hash: stats, {len(res.node_weights)} node weights, "
          f"{st.alignment_count} BAM records, {len(res.kept_paths)} kept paths, "
          f"{len(dev_rows.splitlines())} report rows")
-    return launches, dev_s
+    return launches
+
+
+def _haplotype(work: str, out: str, device: str):
+    """The CLI's haplotype command on the device run's graphs: (called
+    alleles, {allele: abundance} from haplotypes.tsv, seconds)."""
+    from groot_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([
+            "haplotype", "-g", os.path.join(work, "graphs-device"), "-o",
+            os.path.join(work, out), "--device", device,
+            "--log", os.path.join(work, "haplotype.log"),
+        ])
+    dt = time.time() - t0
+    _check(rc == 0, f"haplotype --device {device} failed")
+    with open(os.path.join(work, out, "haplotypes.tsv")) as fh:
+        tsv = {n: float(a) for n, a in (l.rstrip("\n").split("\t") for l in fh)}
+    return buf.getvalue().split(), tsv, dt
+
+
+def haplotype_phase(work: str, dev):
+    """`haplotype --device cuda` (the EM kernel) vs `--device cpu`, then the
+    kernel vs its plain version on the same graphs."""
+    import glob
+
+    from groot_tpu.config import HaploCmd, Info
+
+    from groot_tpu_torch import _build
+    from groot_tpu_torch.em import em
+    from groot_tpu_torch.pipeline.haplotype import load_weighted_gfas
+
+    _build.reset_counts()
+    found, tsv, dt = _haplotype(work, "haplo-cuda", dev.type)
+    launches = _launches(["em_batched"])
+    cpu_found, cpu_tsv, cpu_dt = _haplotype(work, "haplo-cpu", "cpu")
+    _check(found == cpu_found and found, "haplotype: called alleles differ")
+    _check(sorted(tsv) == sorted(cpu_tsv), "haplotype: abundance rows differ")
+    for name, a in cpu_tsv.items():  # 6 printed decimals: 1e-6 of rounding
+        _check(abs(tsv[name] - a) <= 1e-5 * abs(a) + 1e-6,
+               f"haplotype: abundance of {name}: {tsv[name]} vs {a}")
+
+    info = Info()
+    info.haplotype = HaploCmd()
+    gfas = sorted(glob.glob(os.path.join(work, "graphs-device", "*.gfa")))
+    graphs = load_weighted_gfas(info, gfas)
+    for g in graphs:
+        g.remove_dead_paths()  # as find_haplotypes does before the EM
+    arrays = em.padded_batch(graphs)[:3]
+    mi, ma = info.haplotype.min_iterations, info.haplotype.max_iterations
+    args = [torch.from_numpy(x).to(dev) for x in arrays]
+    it, alpha = em.em_batched(*args, mi, ma)
+    it_p, alpha_p = em.run_em_batched_torch(*args, mi, ma)
+    it_c, _alpha_c = em.run_em_batched_torch(
+        *(torch.from_numpy(x) for x in arrays), mi, ma)
+    _sync(dev)
+    _check(torch.equal(it.cpu(), it_p.cpu()) and torch.equal(it.cpu(), it_c),
+           "em_batched: iteration counts differ from the plain version")
+    err = float((alpha - alpha_p).abs().max())
+    rel = float(((alpha - alpha_p).abs() / alpha_p.abs().clamp(min=1.0)).max())
+    _check(rel <= 1e-5, f"em_batched: alpha differs from the plain version "
+           f"by {rel:.3g} of max(1, |alpha|)")
+    ms = _time_ms(lambda: em.em_batched(*args, mi, ma), dev)
+    pms = _time_ms(lambda: em.run_em_batched_torch(*args, mi, ma), dev, 5)
+    G, E, Pn = arrays[0].shape
+    _say(f"haplotype --device {dev.type}: {len(found)} alleles called in "
+         f"{dt:.2f}s; --device cpu the same in {cpu_dt:.2f}s")
+    _say(f"em_batched on {G} graphs (E <= {E}, P <= {Pn}, iterations "
+         f"{int(it.min())}-{int(it.max())}): same iterations as plain (card "
+         f"and CPU), max |alpha - plain| {err:.3g} = {rel:.3g} of max(1, "
+         f"|alpha|); kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    return launches, {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+
+
+def accuracy_phase(work: str) -> None:
+    """The accuracy command on the device run's BAM (bbmap-named reads)."""
+    from groot_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([
+            "accuracy", "--bamFile", os.path.join(work, "device.bam"),
+            "--numReads", str(N_READS), "-i", os.path.join(work, "idx"),
+            "--log", os.path.join(work, "accuracy.log"),
+        ])
+    out = buf.getvalue()
+    _check(rc == 0 and "aligned reads" in out, "accuracy failed")
+    rates = [l for l in out.splitlines() if "%" in l]
+    _check(len(rates) == 4, "accuracy: expected four rates")
+    _say("accuracy of the device run:")
+    for line in out.splitlines():
+        _say("  " + line)
+    _check(int(rates[0].split()[0]) > 0, "accuracy: no read aligned")
 
 
 def main(argv=None) -> int:
@@ -395,15 +597,20 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix=".chip_smoke-", dir=HERE)
     try:
         fq = make_data(work, args.seed)
-        build_index(work, dev)
+        launches = build_index(work, dev)
+        kernels["window_sketch"] = window_parity(work, dev)
         kernels.update(phase_a_parity(work, fq, dev))
-        launches, dev_s = end_to_end(work, fq, dev)
-        traced_device_run(work, fq, dev, dev_s)
+        launches.update(end_to_end(work, fq, dev))
+        em_launches, kernels["em_batched"] = haplotype_phase(work, dev)
+        launches.update(em_launches)
+        accuracy_phase(work)
+        traced_runs(work, fq, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     from groot_tpu_torch import _build
 
+    _check(set(_build.KERNELS) == set(KERNEL_FUNCS), "a kernel is not registered")
     rows = []
     for name, k in _build.KERNELS.items():
         m = kernels[name]

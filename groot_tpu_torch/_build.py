@@ -213,6 +213,21 @@ def native_runtime() -> bool:
     return native.available()
 
 
+def resolve_device(device):
+    """torch.device for `device`; "cuda" without a usable card raises."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
 def reset_counts() -> None:
     for k in KERNELS.values():
         with k._count_lock:

@@ -1,9 +1,12 @@
-"""The groot_tpu_torch command line: index / align / report / version.
+"""The groot_tpu_torch command line: get / index / align / report /
+haplotype / accuracy / version / iamgroot.
 
-Counterpart of groot_tpu/cli.py with the same flags, plus `--device
-{cuda,cpu}` (default cuda): where the port's kernels run. `--device cuda`
-with no usable card raises; `cpu` runs their plain PyTorch versions. The
-reference's `get`, `haplotype` and `accuracy` commands are not ported yet.
+Counterpart of groot_tpu/cli.py with the same commands and flags, plus
+`--device {cuda,cpu}` (default cuda): where the port's kernels run (the
+window sketch of `index`, the read sketch and phase A of `align`, the EM of
+`haplotype`). `--device cuda` with no usable card raises; `cpu` runs their
+plain PyTorch versions, and the native host runtime where the reference
+runs it. `--profiling` writes a torch.profiler trace to ./groot-profile.
 
 Run as `python -m groot_tpu_torch.cli ...`.
 """
@@ -11,6 +14,8 @@ Run as `python -m groot_tpu_torch.cli ...`.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import glob
 import logging
 import os
 import sys
@@ -34,6 +39,25 @@ def _setup_logging(log_file: str) -> None:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(message)s", handlers=handlers,
         force=True,
+    )
+
+
+PROFILE_DIR = "./groot-profile"
+
+
+def _profiled(args):
+    """A torch.profiler trace of the command into PROFILE_DIR when
+    --profiling is set (the reference writes a jax.profiler trace there)."""
+    if not args.profiling:
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(
+        activities=activities, on_trace_ready=tensorboard_trace_handler(PROFILE_DIR)
     )
 
 
@@ -62,6 +86,15 @@ def build_parser() -> argparse.ArgumentParser:
             "--device", choices=("cuda", "cpu"), default="cuda",
             help="where the kernels run (cpu: their plain PyTorch versions)",
         )
+
+    g = sub.add_parser("get", help="download a pre-clustered ARG database")
+    g.add_argument("-d", "--database", required=True)
+    g.add_argument("--identity", default="90")
+    g.add_argument("-o", "--out", default=".")
+    g.add_argument(
+        "--source", default=None, help="local dir/file holding the db tarball"
+    )
+    add_globals(g)
 
     i = sub.add_parser(
         "index", help="convert clustered reference sequences to variation graphs and index them"
@@ -97,8 +130,26 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--lowCov", action="store_true")
     add_globals(r)
 
+    h = sub.add_parser("haplotype", help="call haplotypes from weighted GFAs via EM")
+    h.add_argument("-g", "--graphDir", default="", help="dir of groot-graph-*.gfa")
+    h.add_argument("--gfa", action="append", default=[], help="explicit GFA file(s)")
+    h.add_argument("--cutoff", type=float, default=0.05)
+    h.add_argument("--minIterations", type=int, default=50)
+    h.add_argument("--maxIterations", type=int, default=10000)
+    h.add_argument("-o", "--out", default="groot-haplotypes")
+    add_globals(h)
+
+    acc = sub.add_parser(
+        "accuracy", help="evaluate a BAM of simulated reads (bbmap-style names)"
+    )
+    acc.add_argument("--bamFile", required=True)
+    acc.add_argument("--numReads", type=int, required=True)
+    add_globals(acc)  # -i/--indexDir enables the misaligned breakdown
+
     v = sub.add_parser("version", help="print the version")
     add_globals(v)
+    e = sub.add_parser("iamgroot", help="I AM GROOT!")
+    add_globals(e)
     return p
 
 
@@ -107,12 +158,25 @@ def main(argv=None) -> int:
     if args.cmd == "version":
         print(get_version())
         return 0
+    if args.cmd == "iamgroot":
+        print(IAMGROOT)
+        return 0
     _setup_logging(args.log)
     log.info("i am groot (version %s)", get_version())
-    return COMMANDS[args.cmd](args)
+    with _profiled(args):
+        return COMMANDS[args.cmd](args)
 
 
 # ---------------------------------------------------------------------------
+def cmd_get(args) -> int:
+    from groot_tpu.get import get_database
+
+    path = get_database(args.database, args.identity, args.out, args.source)
+    log.info("database extracted to %s", path)
+    print(path)
+    return 0
+
+
 def cmd_index(args) -> int:
     from groot_tpu.config import Info
 
@@ -141,7 +205,7 @@ def cmd_index(args) -> int:
         num_proc=args.processors,
         profiling=args.profiling,
     )
-    run_index(info, args.msaDir)
+    run_index(info, args.msaDir, args.device)
     log.info("finished in %.2fs", time.time() - start)
     return 0
 
@@ -247,11 +311,83 @@ def cmd_report(args) -> int:
     return 0
 
 
+def cmd_haplotype(args) -> int:
+    from groot_tpu.config import HaploCmd, Info
+
+    from .pipeline.haplotype import find_haplotypes, load_weighted_gfas
+
+    start = time.time()
+    log.info("starting the haplotype subcommand")
+    gfas = list(args.gfa)
+    if args.graphDir:
+        gfas.extend(sorted(glob.glob(os.path.join(args.graphDir, "*.gfa"))))
+    if not gfas:
+        print("no GFA files supplied (use -g/--gfa)")
+        return 1
+    info = Info()
+    info.haplotype = HaploCmd(
+        cutoff=args.cutoff,
+        min_iterations=args.minIterations,
+        max_iterations=args.maxIterations,
+        haplo_dir=args.out,
+    )
+    graphs = load_weighted_gfas(info, gfas)
+    found = find_haplotypes(info, graphs, args.device)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "haplotypes.tsv"), "w") as fh:
+        for g in info.store.values():
+            for pid in sorted(g.paths):
+                fh.write(
+                    f"{g.paths[pid]}\t{g.abundances.get(pid, 0.0):.6f}\n"
+                )
+    for path in found:
+        print(path)
+    log.info("finished in %.2fs", time.time() - start)
+    return 0
+
+
+def cmd_accuracy(args) -> int:
+    from .report.accuracy import evaluate_bam
+
+    stats = evaluate_bam(args.bamFile, args.numReads)
+    sys.stdout.write(stats.format())
+    if args.indexDir:
+        # cluster-membership decomposition of the "incorrectly aligned"
+        # bin: needs the graph store for path -> cluster membership
+        from groot_tpu.config import Info
+
+        from .report.accuracy import misaligned_breakdown
+
+        info = Info.load(os.path.join(args.indexDir, "groot.gg"))
+        bd = misaligned_breakdown(args.bamFile, info.store)
+        sys.stdout.write(
+            "misaligned breakdown: "
+            f"{bd['same_cluster']} same-cluster paralog multimap, "
+            f"{bd['cross_cluster']} cross-cluster, "
+            f"{bd['mangled_correct']} correct-but-name-mangled, "
+            f"{bd['origin_unknown']} origin unknown\n"
+        )
+    return 0
+
+
 COMMANDS = {
+    "get": cmd_get,
     "index": cmd_index,
     "align": cmd_align,
     "report": cmd_report,
+    "haplotype": cmd_haplotype,
+    "accuracy": cmd_accuracy,
 }
+
+IAMGROOT = r"""
+           _____                toots!
+          /     \          ..=====..
+         | () () |        //  groot \\
+          \  ^  /        ||  is here ||
+           |||||          \\._____..//
+           |||||             |_|_|
+  I am Groot. (CUDA edition)
+"""
 
 
 if __name__ == "__main__":

@@ -9,9 +9,8 @@
 // Design: one block per read, walking the read's k-mers in tiles of kTile.
 // For each tile the block stages the tile's codes (kTile + k - 1 bytes) in
 // shared memory; thread t computes the canonical ntHash of k-mers t, t+T, ...
-// directly in O(k) (the canonical_hashes_np formula, ops/nthash.py)
-//   f(i) = XOR_j rol(seed[c[i+j]], k-1-j),  r(i) = XOR_j rol(seed_rc[c[i+j]], j)
-// and keeps min(f, r) in shared memory. Then, per slot m, each thread takes
+// directly in O(k) (canonical_kmer_hash, nthash.cuh) and keeps it in shared
+// memory. Then, per slot m, each thread takes
 // the min of h_m = m == 0 ? c : xorshift27(c * (m ^ k*MULTISEED)) over its
 // k-mers of the tile, a warp shuffle reduces it, and lane 0 of each warp
 // atomicMin's into the block's running slot minimum in shared memory. The
@@ -28,37 +27,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "nthash.cuh"
 
-typedef unsigned long long u64;
+namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxSlots = 64;
 constexpr int kTile = 1024;  // k-mers per shared-memory tile
 constexpr int kMaxK = 1024;
-constexpr u64 kMultiSeed = 0x90B45D39FB6DA1FAULL;
-constexpr int kMultiShift = 27;
-
-// ntHash v1 seeds for A, C, G, T, N and for their complements
-__constant__ u64 kSeed[5] = {
-    0x3C8BFBB395C60474ULL, 0x3193C18562A02B4CULL, 0x20323ED082572324ULL,
-    0x295549F54BE24456ULL, 0x0ULL};
-__constant__ u64 kSeedRc[5] = {
-    0x295549F54BE24456ULL, 0x20323ED082572324ULL, 0x3193C18562A02B4CULL,
-    0x3C8BFBB395C60474ULL, 0x0ULL};
-
-__device__ __forceinline__ u64 rol(u64 x, int r) {
-  r &= 63;
-  return r ? (x << r) | (x >> (64 - r)) : x;
-}
-
-__device__ __forceinline__ u64 warp_min(u64 v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    u64 w = __shfl_down_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
-  }
-  return v;
-}
 
 __global__ void khf_sketch_kernel(const uint8_t* __restrict__ codes,
                                   const int32_t* __restrict__ valid_len,
@@ -84,15 +60,8 @@ __global__ void khf_sketch_kernel(const uint8_t* __restrict__ codes,
       row[i] = c > 4 ? 4 : c;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      u64 f = 0, r = 0;
-      for (int j = 0; j < k; ++j) {
-        const uint8_t c = row[i + j];
-        f ^= rol(kSeed[c], k - 1 - j);
-        r ^= rol(kSeedRc[c], j);
-      }
-      hashes[i] = f < r ? f : r;
-    }
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      hashes[i] = canonical_kmer_hash(row + i, k);
     __syncthreads();
     for (int m = 0; m < s; ++m) {
       const u64 mult = static_cast<u64>(m) ^ kseed;

@@ -234,6 +234,40 @@ def _prefix_xor(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def canonical_hashes_torch(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Canonical hashes of every k-mer of each row, plain PyTorch: u8 codes
+    [B, L] (A=0 C=1 G=2 T=3 N=4; larger codes count as N) -> int64
+    [B, L-k+1] holding the u64 bits. Needs L >= k."""
+    dev = codes.device
+    L = codes.shape[1]
+    nk = L - k + 1
+    ftab, rtab = (
+        torch.from_numpy(as_i64(t)).to(dev) for t in _rot_tables_np(L)
+    )
+    c_idx = codes.long().clamp(max=4)
+    pos = torch.arange(L, device=dev)[None, :]
+    X = _prefix_xor(ftab[c_idx, pos])
+    Y = _prefix_xor(rtab[c_idx, pos])
+
+    def window(P):  # W[i] = P[i+k-1] ^ P[i-1]  (P[-1] = 0)
+        w = P[:, k - 1 :].clone()
+        w[:, 1:] ^= P[:, : nk - 1]
+        return w
+
+    lane = torch.arange(nk, dtype=torch.int64, device=dev)[None, :]
+    fwd = rol(window(X), (lane + (k - 1)) % 64)
+    rev = rol(window(Y), (64 - lane % 64) % 64)
+    return umin(fwd, rev)
+
+
+def slot_hashes_torch(c: torch.Tensor, k: int, slot: int) -> torch.Tensor:
+    """Multihash slot `slot` of canonical hashes c (int64 u64 bits)."""
+    if slot == 0:
+        return c
+    h = c * int(as_i64(slot_multipliers(k, slot + 1))[slot])
+    return h ^ lsr(h, MULTISHIFT)
+
+
 def khf_sketch_torch(
     codes: torch.Tensor, valid_len: torch.Tensor, k: int, s: int
 ) -> torch.Tensor:
@@ -248,31 +282,13 @@ def khf_sketch_torch(
     nk = L - k + 1
     if nk <= 0 or B == 0:
         return torch.full((B, s), -1, dtype=torch.int64, device=dev)
-    ftab, rtab = (
-        torch.from_numpy(as_i64(t)).to(dev) for t in _rot_tables_np(L)
-    )
-    c_idx = codes.long()
-    pos = torch.arange(L, device=dev)[None, :]
-    X = _prefix_xor(ftab[c_idx, pos])
-    Y = _prefix_xor(rtab[c_idx, pos])
-
-    def window(P):  # W[i] = P[i+k-1] ^ P[i-1]  (P[-1] = 0)
-        w = P[:, k - 1 :].clone()
-        w[:, 1:] ^= P[:, : nk - 1]
-        return w
-
+    c = canonical_hashes_torch(codes, k)
     lane = torch.arange(nk, dtype=torch.int64, device=dev)[None, :]
-    fwd = rol(window(X), (lane + (k - 1)) % 64)
-    rev = rol(window(Y), (64 - lane % 64) % 64)
-    c = umin(fwd, rev)
     nk_valid = torch.clamp(valid_len.to(dev).long() - (k - 1), min=0)
     invalid = lane >= nk_valid[:, None]
     c = c.masked_fill(invalid, -1)
     out = torch.empty((B, s), dtype=torch.int64, device=dev)
-    out[:, 0] = umin_reduce(c, 1)
-    mults = as_i64(slot_multipliers(k, s)).tolist()
-    for slot in range(1, s):
-        h = c * mults[slot]
-        h = h ^ lsr(h, MULTISHIFT)
+    for slot in range(s):
+        h = slot_hashes_torch(c, k, slot)
         out[:, slot] = umin_reduce(h.masked_fill(invalid, -1), 1)
     return out

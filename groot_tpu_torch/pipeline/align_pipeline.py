@@ -39,7 +39,7 @@ from groot_tpu.graph.grootgraph import Store
 from groot_tpu.io import native
 from groot_tpu.io.fastx import FastqRead, stream_fastq
 
-from .._build import native_runtime
+from .._build import native_runtime, resolve_device
 from ..align.aligner import GraphAligner
 from ..io import bam as bamio
 from ..ops import nthash
@@ -63,19 +63,6 @@ def select_engine() -> str:
     if engine not in ENGINES:
         raise ValueError(f"unknown GROOT_ENGINE: {engine}")
     return engine
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; "cuda" without a usable card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain PyTorch path"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class ReadBatch:

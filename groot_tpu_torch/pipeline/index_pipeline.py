@@ -3,8 +3,9 @@
 Counterpart of groot_tpu/pipeline/index_pipeline.py. Reference: the three
 pipeline processes in src/pipeline/index.go (MSAconverter -> GraphSketcher
 -> SketchIndexer) wired by cmd/index.go:108-131. Graphs build on the host,
-the window sketches of all graphs come from one native pass
-(index.window), and the files written — groot.gg (a pickle of
+the window sketches of all graphs come from one pass on `device`
+(index.window: the window-sketch kernel on a card, the native runtime on the
+CPU), and the files written — groot.gg (a pickle of
 groot_tpu.config.Info), groot.lshe and the groot.align sidecar — are the
 ones groot_tpu writes and reads."""
 
@@ -22,7 +23,7 @@ from groot_tpu.graph.grootgraph import GrootGraph, Store
 from groot_tpu.io.fastx import read_msa
 from groot_tpu.io.msa2gfa import msa_to_gfa
 
-from .._build import native_runtime
+from .._build import native_runtime, resolve_device
 from ..index.lshe import ContainmentIndex, _KeysView
 from ..index.window import sketch_graphs_soa
 
@@ -61,17 +62,19 @@ def build_graphs(info: Info, msa_files: List[str]) -> List[GrootGraph]:
     return graphs
 
 
-def sketch_and_index(info: Info, graphs: List[GrootGraph]) -> ContainmentIndex:
-    """GraphSketcher + SketchIndexer (index.go:91-211). Consumes the merge
-    struct-of-arrays directly — no per-window Key objects on the build
-    path."""
+def sketch_and_index(
+    info: Info, graphs: List[GrootGraph], device
+) -> ContainmentIndex:
+    """GraphSketcher + SketchIndexer (index.go:91-211), the window sketches
+    on `device`. Consumes the merge struct-of-arrays directly — no
+    per-window Key objects on the build path."""
     store: Store = {}
     num_windows = 0
     prop_distinct = 0.0
     num_masked = 0
     unmasked = [g for g in graphs if not g.masked]
     soas = sketch_graphs_soa(
-        unmasked, info.window_size, info.kmer_size, info.sketch_size
+        unmasked, info.window_size, info.kmer_size, info.sketch_size, device
     )
     soa_iter = iter(soas)
     all_soas: List[Tuple[int, dict]] = []  # (graph_id, merge soa)
@@ -157,10 +160,12 @@ def sketch_and_index(info: Info, graphs: List[GrootGraph]) -> ContainmentIndex:
     return index
 
 
-def run_index(info: Info, msa_dir: str) -> None:
-    """The full `groot index` command (cmd/index.go:57-133)."""
+def run_index(info: Info, msa_dir: str, device) -> None:
+    """The full `groot index` command (cmd/index.go:57-133), the window
+    sketches on `device` ("cuda" without a card raises)."""
     from groot_tpu.hostmem import tune as _malloc_tune
 
+    dev = resolve_device(device)
     _malloc_tune()  # keep batch buffers on the heap (see hostmem.py)
     native_runtime()
     msa_files = find_msa_files(msa_dir)
@@ -173,7 +178,7 @@ def run_index(info: Info, msa_dir: str) -> None:
         raise ValueError("supplied k-mer size greater than read length")
     log.info("\tnumber of MSA files: %d", len(msa_files))
     graphs = build_graphs(info, msa_files)
-    index = sketch_and_index(info, graphs)
+    index = sketch_and_index(info, graphs, dev)
     index.prepare()
     os.makedirs(info.index_dir, exist_ok=True)
     info.save_db(os.path.join(info.index_dir, "groot.lshe"))

@@ -5,13 +5,15 @@ database at the scale of arg-annot.90: 583 clusters, ~1,700 alleles). A
 cluster is a founder sequence plus alleles at most `max_div` divergent from
 it (substitutions, plus a few short deletions that become MSA gaps); each
 cluster is written as an aligned FASTA `cluster-N.msa`, the layout `index`
-reads. Reads are sampled from the ungapped alleles with numpy.
+reads. Reads are sampled from the ungapped alleles with numpy; a FASTQ may
+name each read the way bbmap's randomreads does, so that the `accuracy`
+command can score an alignment of it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -66,6 +68,11 @@ def alleles_of(clusters) -> List[bytes]:
     return [seq.replace(b"-", b"") for rows in clusters for _n, seq in rows]
 
 
+def allele_names(clusters) -> List[str]:
+    """Allele names (the MSA rows' names), in the order of alleles_of."""
+    return [name for rows in clusters for name, _seq in rows]
+
+
 def sample_reads(
     rng: np.random.Generator,
     alleles: Sequence[bytes],
@@ -76,13 +83,15 @@ def sample_reads(
     sub_rate: float = 0.005,
     n_frac: float = 0.01,
     tail_frac: float = 0.0,
-) -> List[bytes]:
+) -> Tuple[List[bytes], np.ndarray, np.ndarray]:
     """n reads: length drawn from `lengths`, start uniform in the allele
     (or flush with its end for a `tail_frac` share), reverse-complemented
     for `rc_frac`, with `sub_rate` substitutions in a `sub_frac` share and
-    one N in an `n_frac` share."""
+    one N in an `n_frac` share. Returns (reads, each read's allele index,
+    its 0-based leftmost position on the allele)."""
     lens = np.asarray(lengths)[rng.integers(0, len(lengths), n)]
     which = rng.integers(0, len(alleles), n)
+    starts = np.zeros(n, dtype=np.int64)
     reads = []
     for i in range(n):
         ref = np.frombuffer(alleles[which[i]], np.uint8)
@@ -91,6 +100,7 @@ def sample_reads(
             start = len(ref) - ln
         else:
             start = int(rng.integers(0, len(ref) - ln + 1))
+        starts[i] = start
         r = ref[start : start + ln].copy()
         if rng.random() < sub_frac:
             k = rng.random(ln) < sub_rate
@@ -100,21 +110,40 @@ def sample_reads(
         if rng.random() < rc_frac:
             r = _COMP[r[::-1]]
         reads.append(r.tobytes())
-    return reads
+    return reads, which, starts
 
 
-def tiny_db(msa_dir: str, seed: int = 42) -> List[bytes]:
-    """The test fixture: 4 clusters x 3 alleles x 400 bp (index it at
-    k31 s20 w100). Writes the MSAs and returns the ungapped alleles."""
-    clusters = make_clusters(
+def tiny_clusters(seed: int = 42):
+    """The test fixture's clusters: 4 clusters x 3 alleles x 400 bp (index
+    them at k31 s20 w100)."""
+    return make_clusters(
         np.random.default_rng(seed), 4, alleles=(3, 3), mean_alleles=3,
         length=(400, 400), max_div=0.03,
     )
+
+
+def tiny_db(msa_dir: str, seed: int = 42) -> List[bytes]:
+    """Writes the MSAs of tiny_clusters and returns the ungapped alleles."""
+    clusters = tiny_clusters(seed)
     write_msa_dir(clusters, msa_dir)
     return alleles_of(clusters)
 
 
-def write_fastq(reads: Sequence[bytes], path: str, prefix: str = "r") -> None:
+def write_fastq(
+    reads: Sequence[bytes], path: str, prefix: str = "r",
+    origins: Optional[Tuple[Sequence[str], np.ndarray]] = None,
+) -> None:
+    """Reads named prefix0, prefix1, ...; or, given `origins` (each read's
+    allele name and 0-based leftmost position on it), named as bbmap's
+    randomreads does: split on '_', field 2 is the position and field 9 the
+    allele (report/accuracy.py parses them)."""
     with open(path, "wb") as fh:
         for i, s in enumerate(reads):
-            fh.write(b"@%s%d\n%s\n+\n%s\n" % (prefix.encode(), i, s, b"I" * len(s)))
+            if origins is None:
+                name = b"%s%d" % (prefix.encode(), i)
+            else:
+                allele, start = origins[0][i], int(origins[1][i])
+                name = b"%d_0_%d_%d_%d_0_0_0_0_%s" % (
+                    i, start, start + len(s) - 1, len(s), allele.encode()
+                )
+            fh.write(b"@%s\n%s\n+\n%s\n" % (name, s, b"I" * len(s)))

@@ -35,7 +35,7 @@ def setup(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dj")
     alleles = synth.tiny_db(str(tmp / "msa"))
     run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
-                   index_dir=str(tmp / "idx")), str(tmp / "msa"))
+                   index_dir=str(tmp / "idx")), str(tmp / "msa"), "cpu")
     info = Info.load(str(tmp / "idx" / "groot.gg"))
     index = ContainmentIndex.load(str(tmp / "idx" / "groot.lshe"))
     info.attach_db(index)
@@ -46,7 +46,7 @@ def setup(tmp_path_factory):
     ref = RefAligner(info.store, refs, mesh=None)
     ref.attach_tables(tables, index, K)
 
-    seqs = synth.sample_reads(
+    seqs, _which, _starts = synth.sample_reads(
         np.random.default_rng(11), alleles, 160,
         lengths=(60, 75, 100, 101, 130, 150, 190), n_frac=0.05,
         tail_frac=0.3,

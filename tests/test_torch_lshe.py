@@ -29,12 +29,13 @@ def indexes(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lshe")
     alleles = synth.tiny_db(str(tmp / "msa"))
     out = {}
-    for name, fn in (("port", run_index), ("ref", ref_run_index)):
+    for name, fn in (("port", lambda i, m: run_index(i, m, "cpu")),
+                     ("ref", ref_run_index)):
         d = str(tmp / name)
         fn(Info(kmer_size=K, sketch_size=S, window_size=W, index_dir=d),
            str(tmp / "msa"))
         out[name] = os.path.join(d, "groot.lshe")
-    reads = synth.sample_reads(
+    reads, _which, _starts = synth.sample_reads(
         np.random.default_rng(7), alleles, 96, lengths=(100, 120), n_frac=0.05
     )
     L = 128

@@ -39,10 +39,11 @@ def data(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipe")
     msa = str(tmp / "msa")
     alleles = synth.tiny_db(msa)
-    for name, fn in (("port", run_index), ("ref", ref_run_index)):
-        fn(Info(kmer_size=K, sketch_size=S, window_size=W,
-                index_dir=str(tmp / name)), msa)
-    reads = synth.sample_reads(
+    run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+                   index_dir=str(tmp / "port")), msa, "cpu")
+    ref_run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+                       index_dir=str(tmp / "ref")), msa)
+    reads, _which, _starts = synth.sample_reads(
         np.random.default_rng(5), alleles, 200, lengths=LENGTHS,
         n_frac=0.05, tail_frac=0.2,
     )
@@ -105,7 +106,7 @@ def test_run_index_matches_reference(data, route, tmp_path, monkeypatch):
         port_dir = tmp_path / "np"
         synth.tiny_db(str(tmp_path / "msa"))
         run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
-                       index_dir=str(port_dir)), str(tmp_path / "msa"))
+                       index_dir=str(port_dir)), str(tmp_path / "msa"), "cpu")
     port = ContainmentIndex.load(str(port_dir / "groot.lshe"))
     ref = RefIndex.load(str(tmp / "ref" / "groot.lshe"))
     assert port.window_keys == ref.window_keys
@@ -181,6 +182,7 @@ ALLOWED = {
     "groot_tpu.graph", "groot_tpu.graph.grootgraph", "groot_tpu.io",
     "groot_tpu.io.gfa", "groot_tpu.io.msa2gfa", "groot_tpu.io.fastx",
     "groot_tpu.io.native", "groot_tpu.align", "groot_tpu.align.batch_host",
+    "groot_tpu.get",
 }
 
 _NO_JAX = r"""
@@ -200,6 +202,13 @@ names = [m.name for m in pkgutil.walk_packages(
     groot_tpu_torch.__path__, "groot_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+# the commands' lazy imports: get (refused before any download) and help
+from groot_tpu_torch import cli
+try:
+    cli.main(["get", "-d", "nope", "--log", ""])
+except ValueError:
+    pass
+cli.build_parser().format_help()
 print("MODULES", len(names))
 print("GROOT_TPU", " ".join(sorted(
     m for m in sys.modules if m.split(".")[0] == "groot_tpu")))
@@ -214,5 +223,5 @@ def test_port_never_imports_jax():
     )
     assert res.returncode == 0, res.stderr
     lines = dict(l.split(" ", 1) for l in res.stdout.splitlines() if " " in l)
-    assert int(lines["MODULES"]) >= 15
+    assert int(lines["MODULES"]) >= 22
     assert set(lines["GROOT_TPU"].split()) <= ALLOWED
