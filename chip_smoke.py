@@ -29,12 +29,27 @@ Phases, any failure exits non-zero:
      gives its plain version's iteration counts (on the card and on the
      CPU) and alphas within 1e-5 relative, and is timed;
   7. accuracy: the `accuracy` command scores the device run's BAM;
-  8. trace: index, align and haplotype on the card once more under
-     torch.profiler, for the card's busy share of each command's wall time
-     and each kernel's device time.
-Every kernel must launch in the run of its command (4, 5 or 6), counted
-from 0 just before it. The last line is {"ok": true, "device": {...}}; the
-line before it lists the kernels with their launches, errors and times.
+  8. data plane: the fused align step (parallel.device_index: KHF-sketch,
+     LSH-query and weight-scatter kernels) over all the reads in batches of
+     2,048 on a DeviceIndex of phase 4's index, at t = 0.99 (the
+     full-equality mode: tallies and each read's hits equal the host
+     replay) and t = 0.97 (the banded mode, at most 24 windows per band:
+     tallies equal the host replay of the step's own hits, and the host
+     hits the cap drops are counted); on the first batch the LSH-query and
+     weight-scatter kernels against their plain versions, timed; the
+     GROOT_DEVICE_QUERY=1 route of the index query against the plain
+     device query; the sharded step over [cuda:0, cuda:0] against the
+     unsharded one;
+  9. processes: `python -m groot_tpu_torch.parallel.nproc` on phase 4's
+     index and reads, with 2 gloo ranks and with 1 NCCL rank on the card
+     (NCCL refuses two ranks on one card), each must print OK;
+  10. trace: index, align, haplotype and the data-plane step on the card
+     once more under torch.profiler, for the card's busy share of each
+     run's wall time and each kernel's device time.
+Every kernel must launch in the run of its command or path (4, 5, 6 or 8),
+counted from 0 just before it. The last line is {"ok": true, "device":
+{...}}; the line before it lists the kernels with their launches, errors
+and times.
 """
 
 from __future__ import annotations
@@ -79,6 +94,18 @@ def _max_abs_err(a: np.ndarray, b: np.ndarray) -> float:
         return 0.0
     av, bv = a.reshape(-1)[bad].tolist(), b.reshape(-1)[bad].tolist()
     return float(max(abs(int(x) - int(y)) for x, y in zip(av, bv)))
+
+
+def _ulps(a, b) -> int:
+    """Largest distance in units in the last place between two float32
+    tensors (NaN against NaN counts 0)."""
+    ia = a.view(torch.int32).long()
+    ib = b.view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    d = (ia - ib).abs()
+    d[torch.isnan(a) & torch.isnan(b)] = 0
+    return int(d.max()) if d.numel() else 0
 
 
 def _sync(dev) -> None:
@@ -339,6 +366,15 @@ def phase_a_parity(work: str, fq: str, dev) -> dict:
     _sync(dev)
     ss_err = _max_abs_err(out.cpu().numpy(), outp.cpu().numpy())
     _check(ss_err == 0.0, "seed_scan kernel != plain")
+    two = dj.DeviceJoinAligner(info.store, bamio.build_references(info.store),
+                               device=dev, devices=[dev, dev])
+    if two.try_load(index, os.path.join(idx, "groot.align"), K) is None:
+        two.attach_tables(tables, index, K)
+    sharded = two.scan_rows(PH, rows_t, sx)
+    _sync(dev)
+    _check(torch.equal(sharded, out), "seed_scan over [cuda, cuda] != unsharded")
+    _say(f"seed_scan sharded over [{dev}, {dev}]: equal to the unsharded scan "
+         f"on {rows_t.shape[1]} rows")
     hits = int(((out & 0xFF) < 255).sum())
     rh = {"max_abs_err": rh_err,
           "ms": _time_ms(lambda: dj.read_hashes(*args), dev),
@@ -381,6 +417,230 @@ def align_and_report(work: str, fq: str, engine: str, device: str):
     return res, bam, out.getvalue(), dt
 
 
+def _plane_batches(fq: str):
+    from groot_tpu_torch.pipeline import align_pipeline as ap
+
+    return [(np.array(b.codes), np.asarray(b.lengths, np.int32))
+            for b in ap.batch_reads_native([fq], ap.DEFAULT_BATCH)]
+
+
+def _host_hits(index, codes, lens, t):
+    """The native host query's hits of a batch, as a set of (read, window)."""
+    from groot_tpu.io import native
+
+    kc = (lens - K + 1).astype(np.int32)
+    rows, wins = index.query_batch_np(native.sketch(codes, lens, K, S), kc, t,
+                                      device="cpu")
+    return set(zip(rows.tolist(), wins.tolist()))
+
+
+def _query_args(di, codes, lens, t, dev):
+    """The LSH query's inputs on the card for one batch, as align_step
+    makes them (the mode is the batch's)."""
+    from groot_tpu_torch.index.lshe import MAX_PER_BAND
+    from groot_tpu_torch.ops.sketch import khf_sketch
+    from groot_tpu_torch.parallel import device_index as pdi
+
+    c = torch.from_numpy(codes).to(dev)
+    v = torch.from_numpy(lens).to(dev)
+    q = khf_sketch(c, v, K, S)
+    kc = (v - (K - 1)).to(torch.int32)
+    full = pdi.full_equality_mode(pdi.local_qmin(lens, K), S,
+                                  float(di.num_window_kmers), t)
+    kw = dict(domain_size=di.num_window_kmers, threshold=t)
+    if full:
+        args = (q, kc, di.sketches, di.fsig_sorted[None], di.forder[None])
+        kw.update(K=S, M=di.cf, qmax=pdi.max_keep_q(float(di.num_window_kmers), t))
+    else:
+        args = (q, kc, di.sketches, di.sorted_sigs, di.band_idx)
+        kw.update(K=di.band_k, M=MAX_PER_BAND)
+    return args, kw, full
+
+
+def data_plane(work: str, fq: str, dev):
+    """The fused align step over every read at t = 0.99 and 0.97, held to
+    the host replay; the LSH-query and weight-scatter kernels against their
+    plain versions on the first batch; the GROOT_DEVICE_QUERY=1 route; the
+    sharded step over [dev, dev]. Returns (launches, {kernel: metrics},
+    a function that runs the step over the batches once, for the trace)."""
+    from groot_tpu.align.batch_host import WeightAccumulator, WindowTables
+    from groot_tpu.config import Info
+
+    from groot_tpu_torch import _build
+    from groot_tpu_torch.index import lshe
+    from groot_tpu_torch.parallel import device_index as pdi
+
+    idx = os.path.join(work, "idx")
+    info = Info.load(os.path.join(idx, "groot.gg"))
+    index = lshe.ContainmentIndex.load(os.path.join(idx, "groot.lshe"))
+    info.attach_db(index)
+    tables = WindowTables(index, info.store)
+    batches = _plane_batches(fq)
+    n_reads = sum(len(c) for c, _l in batches)
+    launches, metrics, steps = {}, {}, {}
+    for t in (0.99, 0.97):
+        t0 = time.time()
+        di = pdi.DeviceIndex.build(index, info.store, K, t, device=dev)
+        _sync(dev)
+        build_s = time.time() - t0
+        step = steps[t] = pdi.make_sharded_align_step(di, t)
+        modes = {pdi.full_equality_mode(pdi.local_qmin(l, K), S,
+                                        float(di.num_window_kmers), t)
+                 for _c, l in batches}
+        _build.reset_counts()
+        t0 = time.time()
+        outs = [step(c, l) for c, l in batches]
+        _sync(dev)
+        dt = time.time() - t0
+        counts = {n: _build.KERNELS[n].launches
+                  for n in ("khf_sketch", "lsh_query", "weight_scatter")}
+        _say(f"data plane t={t} launches:", json.dumps(counts))
+        for n, c in counts.items():
+            _check(c > 0, f"kernel {n} was not launched by the data-plane step")
+        if t == 0.99:
+            launches.update({n: counts[n] for n in ("lsh_query", "weight_scatter")})
+        nw = np.zeros(di.num_nodes)
+        gk = np.zeros(di.num_graphs)
+        dropped = 0
+        acc = WeightAccumulator(tables)
+        cap_lost = extra = 0
+        for (codes, lens), o in zip(batches, outs):
+            win = o[0].cpu().numpy()
+            nw += o[2].cpu().numpy()
+            gk += o[3].cpu().numpy()
+            dropped += int(o[5])
+            rows, cols = np.nonzero(win >= 0)
+            mine = set(zip(rows.tolist(), win[rows, cols].tolist()))
+            host = _host_hits(index, codes, lens, t)
+            if t == 0.99:
+                _check(mine == host, "t=0.99: the step's hits != the host query's")
+            cap_lost += len(host - mine)
+            extra += len(mine - host)
+            kc = (lens - K + 1).astype(np.float64)
+            acc.add_pairs(win[rows, cols].astype(np.int64), kc[rows])
+        _check(dropped == 0, f"t={t}: {dropped} pairs past the budget")
+        np.testing.assert_allclose(nw, acc.node_w, rtol=2e-5, atol=0)
+        host_gk = np.zeros(di.num_graphs)  # graph_kt is over the indexed graphs
+        host_gk[tables.graph_ids] = acc.graph_kt
+        _check(np.array_equal(gk, host_gk), f"t={t}: graph k-mers != host replay")
+        what = "host query" if t == 0.99 else "host replay of its own hits"
+        _say(f"data plane t={t}: DeviceIndex built in {build_s:.2f}s "
+             f"(band K={di.band_k}, L={di.sorted_sigs.shape[0]}, cf={di.cf}); "
+             f"{len(batches)} batches, {n_reads} reads, modes "
+             f"{sorted('full' if m else 'banded' for m in modes)}, C="
+             f"{outs[0][0].shape[1]}, in {dt:.3f}s = {n_reads / dt:.0f} reads/s; "
+             f"{int(sum(int(o[4].sum()) for o in outs))} reads mapped; tallies "
+             f"equal the {what} (node weights rtol 2e-5, max |d| "
+             f"{np.abs(nw - acc.node_w).max():.6g}; graph k-mers equal); host "
+             f"hits the cap drops: {cap_lost}; step hits the host query lacks: {extra}")
+
+        # the two kernels against their plain versions on the first batch
+        codes, lens = batches[0]
+        qargs, qkw, full = _query_args(di, codes, lens, t, dev)
+        win, con = lshe.query_device(*qargs, **qkw)
+        win_p, con_p = lshe.query_device_torch(*qargs, **qkw)
+        _sync(dev)
+        _check(torch.equal(win, win_p), f"lsh_query t={t}: win_idx != plain")
+        ulps = _ulps(con, con_p)
+        _check(ulps <= 1, f"lsh_query t={t}: contain {ulps} ulps from plain")
+        both = ~(torch.isnan(con) & torch.isnan(con_p))
+        q_err = float((con - con_p)[both].abs().max())
+        kc = qargs[1]
+        wargs = (win, kc, di.win_nodes, di.win_coeff, di.win_multi, di.graph_ids,
+                 di.num_nodes, di.num_graphs, 8 * len(lens))
+        got = pdi.weight_scatter(*wargs)
+        want = pdi.weight_scatter_torch(*wargs)
+        _sync(dev)
+        for j, name in ((1, "graph_kmers"), (2, "mapped"), (3, "dropped")):
+            _check(torch.equal(got[j], want[j]), f"weight_scatter t={t}: {name} != plain")
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+        w_err = float((got[0] - want[0]).abs().max())
+        m = {
+            "lsh_query": {
+                "max_abs_err": q_err,
+                "ms": _time_ms(lambda: lshe.query_device(*qargs, **qkw), dev),
+                "plain_ms": _time_ms(lambda: lshe.query_device_torch(*qargs, **qkw), dev, 5)},
+            "weight_scatter": {
+                "max_abs_err": w_err,
+                "ms": _time_ms(lambda: pdi.weight_scatter(*wargs), dev),
+                "plain_ms": _time_ms(lambda: pdi.weight_scatter_torch(*wargs), dev, 5)},
+        }
+        _say(f"lsh_query t={t} ({'full' if full else 'banded'}, B={len(lens)}, C="
+             f"{win.shape[1]}): win_idx equal to plain, contain within {ulps} ulp "
+             f"(tolerance 1 ulp); kernel {m['lsh_query']['ms']:.4f} ms, plain "
+             f"{m['lsh_query']['plain_ms']:.4f} ms")
+        _say(f"weight_scatter t={t} ({int((win >= 0).sum())} kept pairs, Cn="
+             f"{di.win_nodes.shape[1]}): equal to plain (node weights rtol 1e-5, "
+             f"max |d| {w_err:.3g}); kernel {m['weight_scatter']['ms']:.4f} ms, "
+             f"plain {m['weight_scatter']['plain_ms']:.4f} ms")
+        for name in m:
+            prev = metrics.get(name)
+            if prev is None:  # the JSON line carries t = 0.99, the default
+                metrics[name] = m[name]
+            else:
+                prev["max_abs_err"] = max(prev["max_abs_err"], m[name]["max_abs_err"])
+
+        # the sharded step over two shards of the one card
+        base = step(codes, lens)
+        two = pdi.make_sharded_align_step(di, t, devices=[dev, dev])(codes, lens)
+        _sync(dev)
+        for j, name in ((0, "win_idx"), (3, "graph_kmers"), (4, "mapped"), (5, "dropped")):
+            _check(torch.equal(two[j], base[j]), f"sharded step t={t}: {name} differs")
+        torch.testing.assert_close(two[2], base[2], rtol=1e-5, atol=0)
+        _say(f"sharded step t={t} over [{dev}, {dev}] on {len(lens)} reads: "
+             f"equal to the unsharded step")
+
+    # the GROOT_DEVICE_QUERY=1 route of the index query, banded at 0.97
+    from groot_tpu.io import native
+
+    codes, lens = batches[0]
+    q64 = native.sketch(codes, lens, K, S)
+    kcn = (lens - K + 1).astype(np.int32)
+    os.environ["GROOT_DEVICE_QUERY"] = "1"
+    try:
+        rows, wins = index.query_batch_np(q64, kcn, 0.97, device=dev)
+    finally:
+        os.environ.pop("GROOT_DEVICE_QUERY", None)
+    Kq = index.optimal_k(int(kcn.min()), 0.97)
+    sigs, idxs = index._band_tensors(Kq, dev)
+    win_p, _c = lshe.query_device_torch(
+        torch.from_numpy(q64.view(np.int64)).to(dev), torch.from_numpy(kcn).to(dev),
+        index.dev_tensors(dev)["sketches"], sigs, idxs, K=Kq,
+        M=lshe.MAX_PER_BAND, domain_size=index.num_window_kmers, threshold=0.97)
+    wp = win_p.cpu().numpy()
+    r, c = np.nonzero(wp >= 0)
+    mine = set(zip(rows.tolist(), wins.tolist()))
+    _check(mine == set(zip(r.tolist(), wp[r, c].tolist())),
+           "GROOT_DEVICE_QUERY=1 route != the plain device query")
+    host = _host_hits(index, codes, lens, 0.97)
+    _say(f"GROOT_DEVICE_QUERY=1 query at t=0.97 (K={Kq}) on {len(lens)} reads: "
+         f"{len(mine)} hits, equal to the plain device query; host hits lost "
+         f"to the {lshe.MAX_PER_BAND}-per-band cap: {len(host - mine)}")
+
+    def trace_fn():
+        for c, l in batches:
+            steps[0.99](c, l)
+
+    return launches, metrics, trace_fn
+
+
+def nproc_phase(work: str, fq: str) -> None:
+    """parallel.nproc on the index and reads: 2 gloo ranks on the card,
+    then 1 NCCL rank; each must print OK."""
+    for nproc, backend in ((2, "gloo"), (1, "nccl")):
+        cmd = [sys.executable, "-m", "groot_tpu_torch.parallel.nproc",
+               "--nproc", str(nproc), "--backend", backend, "--device", "cuda",
+               "--index", os.path.join(work, "idx"), "--reads", fq,
+               "--timeout", "300"]
+        t0 = time.time()
+        res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                             timeout=420)
+        last = (res.stdout.strip().splitlines() or [""])[-1]
+        _say(f"nproc {nproc} x {backend} ({time.time() - t0:.1f}s): {last}")
+        _check(res.returncode == 0 and last.startswith("OK"),
+               f"nproc {nproc} x {backend} failed: {res.stderr[-3000:]}")
+
+
 # the device functions each kernel's entry point launches (trace names)
 KERNEL_FUNCS = {
     "khf_sketch": ("khf_sketch_kernel",),
@@ -389,6 +649,9 @@ KERNEL_FUNCS = {
     "window_sketch": ("window_sketch_kernel", "window_scan_kernel",
                       "window_compact_kernel"),
     "em_batched": ("em_batched_kernel",),
+    "lsh_query": ("lsh_query_kernel",),
+    "weight_scatter": ("weight_count_kernel", "weight_scan_kernel",
+                       "weight_scatter_kernel"),
 }
 
 
@@ -425,15 +688,16 @@ def _traced(fn):
     return dt, busy_us / 1e6, len(spans), per_kernel
 
 
-def traced_runs(work: str, fq: str, dev) -> None:
-    """index, align (device engine) and haplotype on the card once more,
-    each under torch.profiler: the card's busy share of the command's wall
-    time and each port kernel's device time. Prints "not measured" when
-    the profiler records no device activity."""
+def traced_runs(work: str, fq: str, dev, plane_fn) -> None:
+    """index, align (device engine), haplotype and the data-plane step
+    (plane_fn) on the card once more, each under torch.profiler: the card's
+    busy share of the run's wall time and each port kernel's device time.
+    Prints "not measured" when the profiler records no device activity."""
     runs = {
         "index": lambda: _index(work, "idx-traced", dev.type),
         "align": lambda: align_and_report(work, fq, "device", dev.type),
         "haplotype": lambda: _haplotype(work, "haplo-traced", dev.type),
+        "data plane": plane_fn,
     }
     per_kernel = {}
     for cmd, fn in runs.items():
@@ -604,7 +868,11 @@ def main(argv=None) -> int:
         em_launches, kernels["em_batched"] = haplotype_phase(work, dev)
         launches.update(em_launches)
         accuracy_phase(work)
-        traced_runs(work, fq, dev)
+        plane_launches, plane_kernels, plane_fn = data_plane(work, fq, dev)
+        launches.update(plane_launches)
+        kernels.update(plane_kernels)
+        nproc_phase(work, fq)
+        traced_runs(work, fq, dev, plane_fn)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

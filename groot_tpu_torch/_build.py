@@ -1,10 +1,13 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Every `csrc/*.cu` is compiled by nvcc for sm_90a into ONE shared library
-with a plain C interface, loaded with ctypes:
+with a plain C interface, loaded with ctypes: one nvcc per source, all
+started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libgroot_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libgroot_kernels-<hash>.so *.o
 
 The library is keyed by a hash of the sources and the flags and built at
 first use into `_build/` (git-ignored), so a fresh checkout builds it on its
@@ -21,16 +24,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -63,21 +65,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgroot_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: List[List[str]]) -> None:
+    """Run the commands at once; raise with the output of any that fails."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for c in cmds
+    ]
+    errors = []
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the keyed library unless it already exists."""
+    """Compile csrc/*.cu into the keyed library unless it already exists:
+    one nvcc per source in parallel, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        srcs = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [os.path.join(objdir, p.stem + ".o") for p in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                  for p, o in zip(srcs, objs)])
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]])
     os.replace(tmp, so)
     return so
 

@@ -1,10 +1,12 @@
-"""LSH containment index (the `groot.lshe` file), host query.
+"""LSH containment index (the `groot.lshe` file), host and device query.
 
-Counterpart of groot_tpu/index/lshe.py without its device query
-(`_mix_bands_jax`, `dev`, `_query_batch_np_dev`, `_query_device`) and
-without the hi/lo u32 sketch pairs: sketches are u64 [B, s] throughout.
-The file format (v2: a pickled dict of numpy arrays) is the reference's, so
-each package loads what the other dumped.
+Counterpart of groot_tpu/index/lshe.py without the hi/lo u32 sketch pairs:
+sketches are u64 [B, s] throughout (int64 tensors holding the bits on a
+device). The file format (v2: a pickled dict of numpy arrays) is the
+reference's, so each package loads what the other dumped. The device query
+(`mix_bands_torch`, `dev_tensors`, `query_device`: the lsh_query kernel, and
+its plain version `query_device_torch`) is the counterpart of
+`_mix_bands_jax`, `dev` and `_query_device`.
 
 Reference: src/lshe/lshe.go wraps ekzhu/lshensemble (Zhu et al., VLDB'16).
 In groot every indexed domain has the SAME size (NumWindowKmers =
@@ -22,16 +24,29 @@ runtime library is present)."""
 
 from __future__ import annotations
 
+import ctypes
 import os
 import pickle
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from groot_tpu.io import native
 
+from .._build import I, Kernel, P, ptr
 from .window import Key
+
+MAX_PER_BAND = 24  # max candidates gathered per (read, band) before dedup
+M32 = 0xFFFFFFFF
+LSH_QUERY = Kernel(
+    "lsh_query", "groot_lsh_query",
+    (P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, ctypes.c_float, I,
+     P, P),
+    source="groot_tpu_torch/csrc/lsh_query.cu",
+    replaces="groot_tpu/index/lshe.py:557",
+)
 
 
 def _mix_bands_np(sketch_u64: np.ndarray, K: int) -> np.ndarray:
@@ -47,6 +62,125 @@ def _mix_bands_np(sketch_u64: np.ndarray, K: int) -> np.ndarray:
             h = (h ^ (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)) * prime
             h = (h ^ (v >> np.uint64(32)).astype(np.uint32)) * prime
     return h
+
+
+def mix_bands_torch(q: torch.Tensor, K: int) -> torch.Tensor:
+    """int64 [B, s] (u64 sketch bits) -> int64 [B, L] band signatures, the
+    32-bit FNV mix of _mix_bands_np op for op, zero-extended (torch has no
+    searchsorted on uint32)."""
+    B, s = q.shape
+    L = s // K
+    use = q[:, : L * K].reshape(B, L, K)
+    h = torch.full((B, L), 2166136261, dtype=torch.int64, device=q.device)
+    prime = 16777619
+    for j in range(K):
+        v = use[:, :, j]
+        h = ((h ^ (v & M32)) * prime) & M32
+        h = ((h ^ ((v >> 32) & M32)) * prime) & M32
+    return h
+
+
+def _check_query(q, kmer_counts, sketches, sorted_sigs, band_idx, K, M, qmax):
+    dev = q.device
+    if q.dtype != torch.int64 or q.dim() != 2:
+        raise TypeError("q must be int64 [B, s] (u64 sketch bits)")
+    B, s = q.shape
+    if kmer_counts.dtype != torch.int32 or kmer_counts.shape != (B,):
+        raise TypeError("kmer_counts must be int32 [B]")
+    if sketches.dtype != torch.int64 or sketches.dim() != 2 or sketches.shape[1] != s:
+        raise TypeError("sketches must be int64 [N, s]")
+    N = sketches.shape[0]
+    for t, name in ((sorted_sigs, "sorted_sigs"), (band_idx, "band_idx")):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != N:
+            raise TypeError(f"{name} must be int32 [L, N]")
+    if sorted_sigs.shape != band_idx.shape:
+        raise TypeError("sorted_sigs and band_idx differ in shape")
+    if any(t.device != dev for t in (kmer_counts, sketches, sorted_sigs, band_idx)):
+        raise ValueError("query inputs must share one device")
+    if not 1 <= K <= s or sorted_sigs.shape[0] != s // K or N < 1 or M < 1:
+        raise ValueError(f"bad query shape s={s} K={K} L={sorted_sigs.shape[0]} N={N} M={M}")
+    if qmax is not None and sorted_sigs.shape[0] != 1:
+        raise ValueError("the full-equality query takes one table row (K = s)")
+
+
+def query_device_torch(q, kmer_counts, sketches, sorted_sigs, band_idx, *,
+                       K: int, M: int, domain_size: int, threshold: float,
+                       qmax: Optional[int] = None):
+    """Plain PyTorch version of the lsh_query kernel: banded LSH lookup +
+    exact containment, fixed shapes (the reference's _query_device and the
+    seed half of parallel/device_index.py::align_step).
+
+    q int64 [B, s] (u64 bits), kmer_counts int32 [B], sketches int64 [N, s],
+    sorted_sigs int32 [L, N] (u32 bits, ascending as u32) and band_idx
+    int32 [L, N]. Each band gathers at most M windows; banded mode (qmax
+    None) sorts the B x L*M ids, masks adjacent duplicates to -1 and keeps
+    contain > threshold (f32); full-equality mode (qmax set, one table row
+    of full-sketch signatures, K = s) keeps all-slot-equal windows of reads
+    with kmer_counts <= qmax. Rows with no k-mer (kmer_counts <= 0: mesh
+    padding) keep nothing. Returns (win_idx int32 [B, C], kept ids else -1;
+    contain f32 [B, C], of window 0 where the slot is empty)."""
+    _check_query(q, kmer_counts, sketches, sorted_sigs, band_idx, K, M, qmax)
+    B, s = q.shape
+    Lb, N = sorted_sigs.shape
+    sigs = mix_bands_torch(q, K)  # [B, L]
+    take = torch.arange(M, device=q.device)
+    parts = []
+    for b in range(Lb):
+        row = sorted_sigs[b].long() & M32
+        lo = torch.searchsorted(row, sigs[:, b].contiguous(), side="left")
+        hi = torch.searchsorted(row, sigs[:, b].contiguous(), side="right")
+        pos = lo[:, None] + take[None, :]
+        parts.append(torch.where(
+            pos < hi[:, None], band_idx[b][pos.clamp(max=N - 1)], -1
+        ))
+    cands = torch.stack(parts, dim=1).reshape(B, Lb * M)
+    if qmax is None:
+        cands = torch.sort(cands, dim=1).values
+        dup = torch.zeros_like(cands, dtype=torch.bool)
+        dup[:, 1:] = cands[:, 1:] == cands[:, :-1]
+        cands = torch.where(dup, -1, cands)
+    eq = (sketches[cands.clamp(min=0)] == q[:, None, :]).sum(-1)
+    # s as a device tensor: a CUDA division by a host scalar multiplies by
+    # its reciprocal, which is not the reference's correctly rounded j
+    j = eq.to(torch.float32) / torch.full((), s, dtype=torch.float32, device=q.device)
+    qs = kmer_counts[:, None].to(torch.float32)
+    contain = j * (qs + domain_size) / ((1.0 + j) * qs)
+    if qmax is None:
+        keep = contain > torch.tensor(threshold, dtype=torch.float32)
+    else:
+        keep = (eq == s) & (kmer_counts[:, None] <= qmax)
+    keep &= (cands >= 0) & (kmer_counts[:, None] > 0)
+    return torch.where(keep, cands, -1).to(torch.int32), contain
+
+
+def query_device(q, kmer_counts, sketches, sorted_sigs, band_idx, *,
+                 K: int, M: int, domain_size: int, threshold: float,
+                 qmax: Optional[int] = None):
+    """The device LSH query (see query_device_torch). A CPU tensor takes the
+    plain version; a CUDA tensor launches the lsh_query kernel, or raises."""
+    if q.device.type == "cpu":
+        return query_device_torch(
+            q, kmer_counts, sketches, sorted_sigs, band_idx, K=K, M=M,
+            domain_size=domain_size, threshold=threshold, qmax=qmax,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_query(q, kmer_counts, sketches, sorted_sigs, band_idx, K, M, qmax)
+    B, s = q.shape
+    Lb, N = sorted_sigs.shape
+    C = Lb * M
+    if s > 64 or C > 4096:
+        raise ValueError(f"lsh_query takes s <= 64 and L*M <= 4096, got s={s} C={C}")
+    win = torch.empty((B, C), dtype=torch.int32, device=q.device)
+    contain = torch.empty((B, C), dtype=torch.float32, device=q.device)
+    if B:
+        args = [t.contiguous() for t in (q, kmer_counts, sketches, sorted_sigs, band_idx)]
+        LSH_QUERY.launch(
+            q.device, *(ptr(t) for t in args), B, s, N, Lb, K, M,
+            -1 if qmax is None else int(qmax), float(domain_size),
+            float(threshold), int(qmax is not None), ptr(win), ptr(contain),
+        )
+    return win, contain
 
 
 class _KeysView:
@@ -124,6 +258,33 @@ class ContainmentIndex:
     @property
     def num_sketches(self) -> int:
         return len(self.keys)
+
+    def dev_tensors(self, device) -> dict:
+        """{"sketches": the window sketches, int64 [N, s] (u64 bits)} on
+        `device`, copied on first use per device (counterpart of the
+        reference's `dev` property, whose hi/lo pair this replaces)."""
+        dev = torch.device(device)
+        cache = self.__dict__.setdefault("_dev_cache", {})
+        out = cache.get(str(dev))
+        if out is None:
+            sk = np.ascontiguousarray(self.sketches, np.uint64).view(np.int64)
+            out = cache[str(dev)] = {"sketches": torch.from_numpy(sk).to(dev)}
+        return out
+
+    def _band_tensors(self, K: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Band table K on `device`: sorted signatures as int32 (u32 bits)
+        and their window ids, both [L, N]; copied on first use."""
+        dev = torch.device(device)
+        cache = self.__dict__.setdefault("_band_cache", {})
+        key = (K, str(dev))
+        if key not in cache:
+            t = self._tables[K]
+            cache[key] = (
+                torch.from_numpy(np.ascontiguousarray(
+                    t["sorted_sigs"], np.uint32).view(np.int32)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(t["idx"], np.int32)).to(dev),
+            )
+        return cache[key]
 
     # ------------------------------------------------------------------
     # query
@@ -209,14 +370,21 @@ class ContainmentIndex:
         threshold: float,
         force_banded: bool = False,
         prescreened: bool = False,
+        device=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """u64 read sketches [B, s] -> (read_rows, window_ids), unsorted
         numpy int arrays. No per-band candidate cap: every bucket collision
         is verified (lshe.go:157-171). ``prescreened`` marks a batch
         sketched with the native slot-0 prescreen (its sentinel rows skip
-        the lookup); full sketches, as the CUDA sketch gives, pass False."""
+        the lookup); full sketches, as the CUDA sketch gives, pass False.
+        GROOT_DEVICE_QUERY=1 runs the capped device query on ``device``
+        instead, which must then be given."""
         self.prepare()
         q64 = np.ascontiguousarray(q64, np.uint64)
+        if os.environ.get("GROOT_DEVICE_QUERY"):
+            if device is None:
+                raise ValueError("GROOT_DEVICE_QUERY=1 needs an explicit device")
+            return self._query_batch_np_dev(q64, query_sizes, threshold, device)
         B = int(q64.shape[0])
 
         # Full-equality fast path: containment = j(q+d)/((1+j)q) with
@@ -290,6 +458,26 @@ class ContainmentIndex:
         contain = j * (qs + self.num_window_kmers) / ((1.0 + j) * qs)
         keep = contain > threshold
         return rows[keep], cands[keep]
+
+    def _query_batch_np_dev(
+        self, q64, query_sizes, threshold: float, device
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """The banded device query (query_device, at most MAX_PER_BAND
+        windows per band) on `device` -> (read_rows, window_ids)."""
+        B = int(q64.shape[0])
+        K = self.optimal_k(int(np.min(query_sizes)) if B else 1, threshold)
+        dev = torch.device(device)
+        sigs, idx = self._band_tensors(K, dev)
+        win, _contain = query_device(
+            torch.from_numpy(q64.view(np.int64)).to(dev),
+            torch.from_numpy(np.asarray(query_sizes, np.int32)).to(dev),
+            self.dev_tensors(dev)["sketches"], sigs, idx, K=K,
+            M=MAX_PER_BAND, domain_size=self.num_window_kmers,
+            threshold=threshold,
+        )
+        win = win.cpu().numpy()
+        rows, cols = np.nonzero(win >= 0)
+        return rows.astype(np.int64), win[rows, cols].astype(np.int64)
 
     # ------------------------------------------------------------------
     # serialisation (groot.lshe, format v2)

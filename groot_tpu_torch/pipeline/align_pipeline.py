@@ -10,8 +10,10 @@ GROOT_ENGINE (default `device`):
 
   device — ingest workers sketch each batch with the KHF-sketch kernel on
            `device` and query the LSH index on the host; the main thread
-           launches the cascade's phase-A kernels (align.device_join) and
-           copies their output back; a worker pool runs the host tail;
+           launches the cascade's phase-A kernels (align.device_join; the
+           seed scan sharded over every visible card when there are
+           several) and copies their output back; a worker pool runs the
+           host tail;
   hash   — the host hash-join cascade (align.hash_join), sketching with
            the native runtime;
   host   — the legacy per-Key aligner (align.aligner), its match volumes a
@@ -44,6 +46,7 @@ from ..align.aligner import GraphAligner
 from ..io import bam as bamio
 from ..ops import nthash
 from ..ops.sketch import sketch_reads_u64
+from ..parallel.mesh import data_devices
 
 log = logging.getLogger("groot")
 
@@ -396,6 +399,15 @@ class AlignStats:
     stage_times: Dict[str, float] = field(default_factory=dict)
 
 
+def shard_devices(dev: torch.device) -> Optional[List[torch.device]]:
+    """The devices the device engine's seed scan shards over: every visible
+    card when `dev` is a card and there are several, else None (one
+    device)."""
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        return data_devices(device="cuda")
+    return None
+
+
 def _make_aligner(engine: str, info: Info, dev: torch.device, references):
     """The engine's aligner and its flat window tables (None for `host`).
     The hash/device setup arrays come from the groot.align sidecar when it
@@ -405,7 +417,12 @@ def _make_aligner(engine: str, info: Info, dev: torch.device, references):
     if engine == "device":
         from ..align.device_join import DeviceJoinAligner
 
-        aligner = DeviceJoinAligner(info.store, references, device=dev)
+        devices = shard_devices(dev)
+        if devices is not None:
+            log.info("\tdevice cascade sharded over %d devices", len(devices))
+        aligner = DeviceJoinAligner(
+            info.store, references, device=dev, devices=devices
+        )
     else:
         from ..align.hash_join import HashAligner
 
@@ -818,14 +835,16 @@ def _sketch_query(info, batch, kmer_counts, k, s, t, sketch_dev):
     queried with prescreened=False."""
     if sketch_dev is not None:
         q64 = sketch_reads_u64(batch.codes, batch.lengths, k, s, sketch_dev)
-        return info.db.query_batch_np(q64, kmer_counts, t, prescreened=False)
+        return info.db.query_batch_np(
+            q64, kmer_counts, t, prescreened=False, device=sketch_dev
+        )
     prescreen = _prescreen_for(info, batch, kmer_counts, t)
     q64 = native.sketch(batch.codes, batch.lengths, k, s, prescreen=prescreen)
     if q64 is None:
         prescreen = None
         q64 = nthash.khf_sketch_np_batch(batch.codes, batch.lengths, k, s)
     return info.db.query_batch_np(
-        q64, kmer_counts, t, prescreened=prescreen is not None
+        q64, kmer_counts, t, prescreened=prescreen is not None, device="cpu"
     )
 
 

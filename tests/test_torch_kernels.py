@@ -22,11 +22,12 @@ from groot_tpu.io.msa2gfa import msa_to_gfa
 from groot_tpu_torch import _build, synth
 from groot_tpu_torch.align import device_join as dj
 from groot_tpu_torch.em import em
-from groot_tpu_torch.index import window
+from groot_tpu_torch.index import lshe, window
 from groot_tpu_torch.index.lshe import ContainmentIndex
 from groot_tpu_torch.io import bam as bamio
 from groot_tpu_torch.ops import nthash
 from groot_tpu_torch.ops.sketch import KHF_SKETCH, khf_sketch
+from groot_tpu_torch.parallel import device_index as pdi
 from groot_tpu_torch.pipeline.align_pipeline import _compute_hits, _make_batch
 from groot_tpu_torch.pipeline.index_pipeline import run_index
 
@@ -50,6 +51,8 @@ def test_kernel_registry_names_sources_and_replaced_functions():
         "seed_scan": "def seed_scan",
         "window_sketch": "def window_sketches",
         "em_batched": "def _run_em_batched",
+        "lsh_query": "def _query_device",
+        "weight_scatter": "def align_step",
     }
     assert set(_build.KERNELS) == set(want)
     for name, kern in _build.KERNELS.items():
@@ -249,3 +252,151 @@ def test_em_on_graphs_card_equals_cpu(cuda):
         assert a.em_iterations == b.em_iterations
         for pid, x in b.alpha.items():
             assert abs(a.alpha[pid] - x) <= 1e-5 * max(1.0, abs(x))
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two float32
+    tensors (NaN against NaN counts 0)."""
+    ia = a.view(torch.int32).long()
+    ib = b.view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    d = (ia - ib).abs()
+    d[torch.isnan(a) & torch.isnan(b)] = 0
+    return int(d.max()) if d.numel() else 0
+
+
+def _lsh_tables(seed: int, N: int = 6000, s: int = 20):
+    """Window sketches over a 4-value alphabet (every band collides with
+    hundreds of windows: the M cap and the duplicate mask are busy), six
+    windows with unique slots (a query equal to one finds it in every band:
+    all but one candidate are duplicates) and four copies of one window
+    (a full-sketch bucket of 4). Returns (sketches u64, {K: (sorted band
+    signatures u32 [L, N], window ids)})."""
+    rng = np.random.default_rng(seed)
+    sk = rng.integers(1, 5, size=(N, s)).astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    sk[:6] = rng.integers(1 << 40, 1 << 62, size=(6, s)).astype(np.uint64)
+    sk[10:13] = sk[9]
+    tabs = {}
+    for Kb in (1, 2, s):
+        sig = lshe._mix_bands_np(sk, Kb)
+        order = np.argsort(sig, axis=0, kind="stable")
+        tabs[Kb] = (np.take_along_axis(sig, order, axis=0).T.copy(),
+                    order.T.astype(np.int32).copy())
+    return sk, tabs
+
+
+def _lsh_queries(rng, sk, B: int = 512):
+    """Queries: copies of index windows with some slots changed (so eq
+    spans 0..s), the unique windows, sketches found nowhere, and k-mer
+    counts over 1..200 (the containment boundary at t = 0.97 for every eq)
+    plus rows of no k-mer (length-0 padding)."""
+    N, s = sk.shape
+    q = sk[rng.integers(0, N, size=B)].copy()
+    flip = rng.random((B, s)) < rng.random((B, 1)) * 0.3
+    q[flip] = rng.integers(1, 1 << 62, size=int(flip.sum())).astype(np.uint64)
+    q[:6] = sk[:6]
+    q[6:12] = rng.integers(1 << 40, 1 << 62, size=(6, s)).astype(np.uint64)
+    q[12] = sk[9]
+    kc = rng.integers(1, 201, size=B).astype(np.int32)
+    kc[12] = 50
+    kc[-4:] = (0, -30, 0, -30)
+    return q, kc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["K1", "K2", "full"])
+def test_lsh_query_kernel_matches_plain(cuda, mode):
+    rng = np.random.default_rng(21)
+    sk, tabs = _lsh_tables(21)
+    q, kc = _lsh_queries(rng, sk)
+    Kb = {"K1": 1, "K2": 2, "full": S}[mode]
+    sigs, idx = tabs[Kb]
+    if mode == "full":
+        M, qmax = 4, pdi.max_keep_q(120.0, 0.97)
+    else:
+        M, qmax = lshe.MAX_PER_BAND, None
+    args = [torch.from_numpy(x).to(cuda) for x in (
+        q.view(np.int64), kc, sk.view(np.int64), sigs.view(np.int32), idx)]
+    kw = dict(K=Kb, M=M, domain_size=120, threshold=0.97, qmax=qmax)
+    before = lshe.LSH_QUERY.launches
+    win, contain = lshe.query_device(*args, **kw)
+    torch.cuda.synchronize()
+    assert lshe.LSH_QUERY.launches == before + 1
+    win_p, contain_p = lshe.query_device_torch(*args, **kw)
+    assert win.shape == (len(q), (S // Kb) * M)
+    assert torch.equal(win, win_p)
+    assert _ulps(contain, contain_p) <= 1
+    w = win.cpu().numpy()
+    assert (w[-4:] < 0).all() and (w[6:12] < 0).all()  # padding, no hit
+    assert (w >= 0).sum() > (20 if mode == "full" else len(q))
+    if mode == "full":  # the bucket of four equal windows
+        assert sorted(w[12].tolist()) == [9, 10, 11, 12]
+    if mode == "K1":  # C = 480: the cap and the duplicate mask at full width
+        assert (w[:6] >= 0).sum(axis=1).max() <= 1
+
+
+def _weight_inputs(seed: int, B: int = 700, C: int = 96, N: int = 3000,
+                   Cn: int = 7, num_nodes: int = 5000, num_graphs: int = 40):
+    rng = np.random.default_rng(seed)
+    win = np.where(rng.random((B, C)) < 0.05,
+                   rng.integers(0, N, size=(B, C)), -1).astype(np.int32)
+    win[::7] = -1  # rows with no kept slot
+    kc = rng.integers(1, 160, size=B).astype(np.int32)
+    ncnt = rng.integers(1, Cn + 1, size=N)
+    nodes = np.where(np.arange(Cn)[None, :] < ncnt[:, None],
+                     rng.integers(0, num_nodes, size=(N, Cn)), -1).astype(np.int32)
+    coeff = (rng.random((N, Cn)) * 3).astype(np.float32)
+    coeff[ncnt == 1, 0] = 1.0
+    multi = ncnt > 1
+    gids = rng.integers(0, num_graphs, size=N).astype(np.int32)
+    return (win, kc, nodes, coeff, multi, gids), num_nodes, num_graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [100_000, 1_500, 1])
+def test_weight_scatter_kernel_matches_plain(cuda, budget):
+    arrays, nn, ng = _weight_inputs(22)
+    args = [torch.from_numpy(x).to(cuda) for x in arrays]
+    before = pdi.WEIGHT_SCATTER.launches
+    nw, gk, mapped, dropped = pdi.weight_scatter(*args, nn, ng, budget)
+    torch.cuda.synchronize()
+    assert pdi.WEIGHT_SCATTER.launches == before + 1
+    nw_p, gk_p, mapped_p, dropped_p = pdi.weight_scatter_torch(*args, nn, ng, budget)
+    n_kept = int((arrays[0] >= 0).sum())
+    assert int(dropped) == int(dropped_p) == max(n_kept - budget, 0)
+    assert torch.equal(mapped, mapped_p) and torch.equal(gk, gk_p)
+    torch.testing.assert_close(nw, nw_p, rtol=1e-5, atol=0)
+    assert float(nw.sum()) > 0 or budget == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0.99, 0.97])
+def test_align_step_on_card_matches_plain_and_shards(cuda, tmp_path, t):
+    alleles = synth.tiny_db(str(tmp_path / "msa"))
+    run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+                   index_dir=str(tmp_path / "idx")), str(tmp_path / "msa"), "cpu")
+    info = Info.load(str(tmp_path / "idx" / "groot.gg"))
+    index = ContainmentIndex.load(str(tmp_path / "idx" / "groot.lshe"))
+    dev = pdi.DeviceIndex.build(index, info.store, K, t, device=cuda)
+    reads, _w, _s = synth.sample_reads(np.random.default_rng(4), alleles, 301,
+                                       lengths=(80, 100, 101, 130))
+    codes = np.full((len(reads), 160), 4, np.uint8)
+    lens = np.array([len(r) for r in reads], np.int32)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = nthash.ASCII_TO_CODE[np.frombuffer(r, np.uint8)]
+    c, v = torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda)
+    for full in (False, True):
+        got = pdi.align_step(dev, c, v, threshold=t, full_equality=full)
+        want = pdi.align_step_torch(dev, c, v, threshold=t, full_equality=full)
+        torch.cuda.synchronize()
+        for j in (0, 3, 4, 5):
+            assert torch.equal(got[j], want[j]), j
+        assert _ulps(got[1], want[1]) <= 1
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        assert int(got[4].sum()) > 100
+    base = pdi.make_sharded_align_step(dev, t)(codes, lens)
+    two = pdi.make_sharded_align_step(dev, t, devices=[cuda, cuda])(codes, lens)
+    for j in (0, 3, 4, 5):
+        assert torch.equal(two[j], base[j]), j
+    torch.testing.assert_close(two[2], base[2], rtol=1e-5, atol=0)

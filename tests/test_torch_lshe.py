@@ -3,12 +3,15 @@
 Each package loads the index file the other dumped and both give the same
 (rows, wins) on the same sketches, on the full-equality path and the banded
 one. The device route (full sketches, prescreened=False) gives what the
-reference's native prescreened route gives."""
+reference's native prescreened route gives. The device query's plain
+version equals the reference's _mix_bands_jax and jitted _query_device, and
+the GROOT_DEVICE_QUERY=1 route equals the reference's."""
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from groot_tpu.config import Info
 from groot_tpu.index.lshe import ContainmentIndex as RefIndex
@@ -16,6 +19,7 @@ from groot_tpu.io import native
 from groot_tpu.ops import nthash as ref_nthash
 from groot_tpu.pipeline.index_pipeline import run_index as ref_run_index
 from groot_tpu_torch import synth
+from groot_tpu_torch.index import lshe
 from groot_tpu_torch.index.lshe import ContainmentIndex
 from groot_tpu_torch.ops.nthash import ASCII_TO_CODE
 from groot_tpu_torch.ops.sketch import sketch_reads_u64
@@ -88,3 +92,94 @@ def test_device_route_query_equals_native_prescreened(indexes):
         want = ref.query_batch_np(None, None, kc, 0.99, q64=full)
     assert _hits(*got) == _hits(*want)
     assert len(got[0]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the device query (counterpart of _mix_bands_jax / _query_device)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def sketched(indexes):
+    paths, codes, lens = indexes
+    port = ContainmentIndex.load(paths["port"])
+    ref = RefIndex.load(paths["ref"])
+    q64 = ref_nthash.khf_sketch_np_batch(codes, lens, K, S)
+    return port, ref, q64, (lens - K + 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("Kb", range(1, S + 1))
+def test_mix_bands_torch_matches_jax_and_numpy(sketched, Kb):
+    import jax.numpy as jnp
+
+    from groot_tpu.index.lshe import _mix_bands_jax, _mix_bands_np
+
+    _port, _ref, q64, _kc = sketched
+    got = lshe.mix_bands_torch(torch.from_numpy(q64.view(np.int64)), Kb)
+    hi = (q64 >> np.uint64(32)).astype(np.uint32)
+    lo = (q64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    want = np.asarray(_mix_bands_jax(jnp.asarray(hi), jnp.asarray(lo), Kb))
+    assert got.dtype == torch.int64 and got.shape == (len(q64), S // Kb)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(want, _mix_bands_np(q64, Kb))
+
+
+@pytest.mark.parametrize("t", [0.6, 0.9, 0.97])
+def test_query_device_torch_matches_jax(sketched, t):
+    import jax
+    import jax.numpy as jnp
+
+    from groot_tpu.index.lshe import _query_device
+
+    port, ref, q64, kc = sketched
+    Kb = ref.optimal_k(int(kc.min()), t)
+    tab = ref._tables[Kb]
+    hi = (q64 >> np.uint64(32)).astype(np.uint32)
+    lo = (q64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    ref.prepare()
+    fn = jax.jit(_query_device, static_argnames=("K", "domain_size", "threshold"))
+    want = np.asarray(fn(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(tab["sorted_sigs"]),
+        jnp.asarray(tab["idx"]), ref.dev["hi"], ref.dev["lo"], jnp.asarray(kc),
+        Kb, ref.num_window_kmers, t,
+    ))
+    sigs, idx = port._band_tensors(Kb, "cpu")
+    win, contain = lshe.query_device(
+        torch.from_numpy(q64.view(np.int64)), torch.from_numpy(kc),
+        port.dev_tensors("cpu")["sketches"], sigs, idx, K=Kb,
+        M=lshe.MAX_PER_BAND, domain_size=port.num_window_kmers, threshold=t,
+    )
+    assert win.shape == want.shape == (len(q64), (S // Kb) * lshe.MAX_PER_BAND)
+    np.testing.assert_array_equal(win.numpy(), want)
+    assert (want >= 0).sum() > len(q64)
+
+
+@pytest.mark.parametrize("t", [0.99, 0.97])
+def test_device_query_route_matches_jax(sketched, monkeypatch, t):
+    port, ref, q64, kc = sketched
+    hi = (q64 >> np.uint64(32)).astype(np.uint32)
+    lo = (q64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    monkeypatch.setenv("GROOT_DEVICE_QUERY", "1")
+    want = ref.query_batch_np(hi, lo, kc, t)
+    got = port.query_batch_np(q64, kc, t, device="cpu")
+    assert _hits(*got) == _hits(*want) and len(got[0]) > 0
+    with pytest.raises(ValueError, match="device"):
+        port.query_batch_np(q64, kc, t)
+    # the capped device query finds what the host query finds here
+    monkeypatch.delenv("GROOT_DEVICE_QUERY")
+    host = port.query_batch_np(q64, kc, t, force_banded=True)
+    assert set(_hits(*got)) <= set(_hits(*host))
+
+
+def test_query_device_checks_its_inputs(sketched):
+    port, _ref, q64, kc = sketched
+    sigs, idx = port._band_tensors(2, "cpu")
+    q = torch.from_numpy(q64.view(np.int64))
+    sk = port.dev_tensors("cpu")["sketches"]
+    kw = dict(M=lshe.MAX_PER_BAND, domain_size=70, threshold=0.97)
+    with pytest.raises(TypeError):
+        lshe.query_device(q.int(), torch.from_numpy(kc), sk, sigs, idx, K=2, **kw)
+    with pytest.raises(TypeError):
+        lshe.query_device(q, torch.from_numpy(kc).long(), sk, sigs, idx, K=2, **kw)
+    with pytest.raises(ValueError):
+        lshe.query_device(q, torch.from_numpy(kc), sk, sigs, idx, K=3, **kw)
+    with pytest.raises(ValueError):
+        lshe.query_device(q, torch.from_numpy(kc), sk, sigs, idx, K=2, qmax=71, **kw)
