@@ -24,6 +24,11 @@ Phases, any failure exits non-zero:
      node weights, BAM records, pruned paths and the report. The read-hash
      and seed-scan kernels are held against their plain versions on the
      rows of one real batch, and timed;
+  5b. cascade: the same align on the `cascade` engine (GROOT_ENGINE=cascade,
+     --device cuda: the pair-cascade kernel) must equal the hash run of
+     phase 5 in the same five ways; then the kernel is held against its
+     plain version on the inputs of the largest chunk of the first batch,
+     and both are timed;
   6. haplotype: `haplotype --device cuda` (the EM kernel) and `--device
      cpu` on the device run's graphs call the same alleles; the kernel
      gives its plain version's iteration counts (on the card and on the
@@ -43,13 +48,18 @@ Phases, any failure exits non-zero:
   9. processes: `python -m groot_tpu_torch.parallel.nproc` on phase 4's
      index and reads, with 2 gloo ranks and with 1 NCCL rank on the card
      (NCCL refuses two ranks on one card), each must print OK;
-  10. trace: index, align, haplotype and the data-plane step on the card
-     once more under torch.profiler, for the card's busy share of each
-     run's wall time and each kernel's device time.
-Every kernel must launch in the run of its command or path (4, 5, 6 or 8),
-counted from 0 just before it. The last line is {"ok": true, "device":
-{...}}; the line before it lists the kernels with their launches, errors
-and times.
+  10. trace: index, align (device and cascade engines), haplotype and the
+     data-plane step on the card once more under torch.profiler, for the
+     card's busy share of each run's wall time and each kernel's device
+     time.
+Every kernel must launch in the run of its command or path (4, 5, 5b, 6 or
+8), counted from 0 just before it. The last line is {"ok": true, "device":
+{...}}; the line before it lists the kernels with their launches, errors,
+times, the least time the card could take for the same work (`bound_ms`:
+the larger of the bytes the function must move over 3.35 TB/s and its
+operations over 67 T op/s, the H100's non-tensor rate; `bound_by` says
+which) and, where one PyTorch call computes the same function, that call's
+time (`library_ms`, else null).
 """
 
 from __future__ import annotations
@@ -134,12 +144,30 @@ def _time_ms(fn, dev, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for work that moves `nbytes` and
+    does `ops` scalar operations (each counted from this run's inputs)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 # ---------------------------------------------------------------------------
 def preflight() -> str:
     if torch is None or not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() is false)")
     sys.path.insert(0, HERE)
-    from groot_tpu.io import native
+    from groot_tpu_torch.io import native
 
     from groot_tpu_torch import _build
 
@@ -160,7 +188,7 @@ def preflight() -> str:
     _say(smi)
     t0 = time.time()
     ok = _build.native_runtime()
-    _say(f"groot_tpu.io.native.available(): {ok} {native._LIB_PATH} "
+    _say(f"io.native.available(): {ok} {native._lib._name if ok else None} "
          f"({time.time() - t0:.1f}s, a g++ build included when the "
          f"committed library does not load)")
     if not ok:
@@ -182,7 +210,7 @@ def build() -> float:
 def sketch_parity(seed: int, dev) -> dict:
     """KHF-sketch kernel vs its plain version (and the host goldens). The
     first shape is the main path's batch; its times go into the summary."""
-    from groot_tpu.io import native
+    from groot_tpu_torch.io import native
 
     from groot_tpu_torch.ops import nthash
     from groot_tpu_torch.ops.sketch import khf_sketch
@@ -217,9 +245,13 @@ def sketch_parity(seed: int, dev) -> dict:
         pms = _time_ms(lambda: nthash.khf_sketch_torch(c, v, k, s), dev, 5)
         _say(f"khf_sketch k{k} s{s} L{L} B{B}: equal to plain/native/numpy; "
              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        res.append((ms, pms))
-    ms, pms = res[0]  # the main path's shape
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+        # bytes: codes and lengths in, the sketches out; ops: per k-mer the
+        # canonical rolling hash (~8) and s multiplicative slots (~4 each)
+        n_kmer = int(np.clip(lens.astype(np.int64) - k + 1, 0, None).sum())
+        res.append((ms, pms, _bound(codes.nbytes + lens.nbytes + B * s * 8,
+                                    n_kmer * (8 + 4 * s))))
+    ms, pms, bound = res[0]  # the main path's shape
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
 
 
 def make_data(work: str, seed: int) -> str:
@@ -287,8 +319,8 @@ def build_index(work: str, dev) -> dict:
 def window_parity(work: str, dev) -> dict:
     """The window-sketch kernel vs its plain version and the native runtime
     on every path row of the database, timed."""
-    from groot_tpu.config import Info
-    from groot_tpu.io import native
+    from groot_tpu_torch.config import Info
+    from groot_tpu_torch.io import native
 
     from groot_tpu_torch.graph.pack import pack_graph_paths
     from groot_tpu_torch.index import window
@@ -316,17 +348,23 @@ def window_parity(work: str, dev) -> dict:
     ms = _time_ms(lambda: window.window_run_starts(c, v, K, S, W), dev)
     pms = _time_ms(lambda: window.window_run_starts_torch(c, v, K, S, W), dev, 5)
     nw = int((lens - W + 1).clip(min=0).sum())
+    # bytes: path codes and lengths in, the run starts (row, column, u64
+    # sketch) out; ops: per k-mer the rolling hash and S slots, per window
+    # and slot ~2 for the sliding minimum
+    n_kmer = int(np.clip(lens.astype(np.int64) - K + 1, 0, None).sum())
+    bound = _bound(codes.nbytes + lens.nbytes + len(got_np[0]) * 16,
+                   n_kmer * (8 + 4 * S) + nw * S * 2)
     _say(f"window_sketch on {len(lens)} path rows (<= {codes.shape[1]} bp, "
          f"{nw} windows, {len(got_np[0])} run starts): equal to plain/native; "
          f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
 
 
 def phase_a_parity(work: str, fq: str, dev) -> dict:
     """Read-hash and seed-scan kernels vs their plain versions on the rows
     of the first batch of the end-to-end reads."""
-    from groot_tpu.align.batch_host import WindowTables
-    from groot_tpu.config import Info
+    from groot_tpu_torch.align.batch_host import WindowTables
+    from groot_tpu_torch.config import Info
 
     from groot_tpu_torch.align import device_join as dj
     from groot_tpu_torch.index.lshe import ContainmentIndex
@@ -376,13 +414,22 @@ def phase_a_parity(work: str, fq: str, dev) -> dict:
     _say(f"seed_scan sharded over [{dev}, {dev}]: equal to the unsharded scan "
          f"on {rows_t.shape[1]} rows")
     hits = int(((out & 0xFF) < 255).sum())
+    # read_hash: codes, lengths and power tables in, four hash arrays out;
+    # ~8 ops a base (prefix hashes of both strands, anchors)
     rh = {"max_abs_err": rh_err,
           "ms": _time_ms(lambda: dj.read_hashes(*args), dev),
-          "plain_ms": _time_ms(lambda: dj.read_hashes_torch(*args), dev, 5)}
+          "plain_ms": _time_ms(lambda: dj.read_hashes_torch(*args), dev, 5),
+          **_bound(_nbytes(codes, lens, rpow32, rinv32, *PH),
+                   8 * int(lens.sum()))}
+    # seed_scan: the hash arrays and rows in, one word a row out, and at
+    # least one anchor chain (n_offs + 1 table words) per row and strand
+    n_rows = rows_t.shape[1]
+    chain = 2 * n_rows * (sx["n_offs"] + 1)
     ss = {"max_abs_err": ss_err,
           "ms": _time_ms(lambda: dj.seed_scan(al._dev, *PH, *rows_t, **kw), dev),
           "plain_ms": _time_ms(
-              lambda: dj.seed_scan_torch(al._dev, *PH, *rows_t, **kw), dev, 5)}
+              lambda: dj.seed_scan_torch(al._dev, *PH, *rows_t, **kw), dev, 5),
+          **_bound(_nbytes(*PH, rows_t, out) + 4 * chain, chain)}
     _say(f"phase A on one batch: {len(codes)} mapped reads, "
          f"{rows_t.shape[1]} rows ({hits} stage-1 hits), D1 {sx['D1']}; "
          f"read_hash kernel {rh['ms']:.4f} ms plain {rh['plain_ms']:.4f} ms; "
@@ -426,7 +473,7 @@ def _plane_batches(fq: str):
 
 def _host_hits(index, codes, lens, t):
     """The native host query's hits of a batch, as a set of (read, window)."""
-    from groot_tpu.io import native
+    from groot_tpu_torch.io import native
 
     kc = (lens - K + 1).astype(np.int32)
     rows, wins = index.query_batch_np(native.sketch(codes, lens, K, S), kc, t,
@@ -463,8 +510,8 @@ def data_plane(work: str, fq: str, dev):
     plain versions on the first batch; the GROOT_DEVICE_QUERY=1 route; the
     sharded step over [dev, dev]. Returns (launches, {kernel: metrics},
     a function that runs the step over the batches once, for the trace)."""
-    from groot_tpu.align.batch_host import WeightAccumulator, WindowTables
-    from groot_tpu.config import Info
+    from groot_tpu_torch.align.batch_host import WeightAccumulator, WindowTables
+    from groot_tpu_torch.config import Info
 
     from groot_tpu_torch import _build
     from groot_tpu_torch.index import lshe
@@ -555,15 +602,43 @@ def data_plane(work: str, fq: str, dev):
             _check(torch.equal(got[j], want[j]), f"weight_scatter t={t}: {name} != plain")
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
         w_err = float((got[0] - want[0]).abs().max())
+        # lsh_query: sketches and k-mer counts in, ids and containments
+        # out, each read's candidate sketch rows read once and two binary
+        # searches of the signature table; ops: the band mix, the searches
+        # and one compare a candidate slot
+        B, Cq = win.shape
+        n_sig = int(qargs[3].shape[-1])
+        search = 2 * max(n_sig, 2).bit_length()
+        q_bound = _bound(_nbytes(qargs[0], qargs[1], win, con)
+                         + B * (Cq * S + search) * 8,
+                         B * (8 * S + search + Cq * S))
+        # weight_scatter: kept pairs' node rows (id and coefficient) and the
+        # hit table in, the tallies out; ops: a multiply-add and an atomic
+        # a node slot. Its library counterpart: index_add_ of the same
+        # contributions into the node weights.
+        kept = win >= 0
+        n_kept = int(kept.sum())
+        Cn = di.win_nodes.shape[1]
+        w_bound = _bound(_nbytes(win, kc, got[0], got[1], got[2]) + n_kept * (Cn * 8 + 5),
+                         2 * n_kept * Cn)
+        r_k, c_k = torch.nonzero(kept, as_tuple=True)
+        nodes = di.win_nodes[win[r_k, c_k].long()]
+        vals = di.win_coeff[win[r_k, c_k].long()] * kc[r_k].float()[:, None]
+        live = nodes >= 0
+        idx, val = nodes[live].long(), vals[live]
+        acc_w = torch.zeros(di.num_nodes, dtype=torch.float32, device=dev)
         m = {
             "lsh_query": {
                 "max_abs_err": q_err,
                 "ms": _time_ms(lambda: lshe.query_device(*qargs, **qkw), dev),
-                "plain_ms": _time_ms(lambda: lshe.query_device_torch(*qargs, **qkw), dev, 5)},
+                "plain_ms": _time_ms(lambda: lshe.query_device_torch(*qargs, **qkw), dev, 5),
+                "library_ms": None, **q_bound},
             "weight_scatter": {
                 "max_abs_err": w_err,
                 "ms": _time_ms(lambda: pdi.weight_scatter(*wargs), dev),
-                "plain_ms": _time_ms(lambda: pdi.weight_scatter_torch(*wargs), dev, 5)},
+                "plain_ms": _time_ms(lambda: pdi.weight_scatter_torch(*wargs), dev, 5),
+                "library_ms": _time_ms(lambda: acc_w.index_add_(0, idx, val), dev),
+                **w_bound},
         }
         _say(f"lsh_query t={t} ({'full' if full else 'banded'}, B={len(lens)}, C="
              f"{win.shape[1]}): win_idx equal to plain, contain within {ulps} ulp "
@@ -572,7 +647,8 @@ def data_plane(work: str, fq: str, dev):
         _say(f"weight_scatter t={t} ({int((win >= 0).sum())} kept pairs, Cn="
              f"{di.win_nodes.shape[1]}): equal to plain (node weights rtol 1e-5, "
              f"max |d| {w_err:.3g}); kernel {m['weight_scatter']['ms']:.4f} ms, "
-             f"plain {m['weight_scatter']['plain_ms']:.4f} ms")
+             f"plain {m['weight_scatter']['plain_ms']:.4f} ms, index_add_ "
+             f"{m['weight_scatter']['library_ms']:.4f} ms")
         for name in m:
             prev = metrics.get(name)
             if prev is None:  # the JSON line carries t = 0.99, the default
@@ -589,9 +665,21 @@ def data_plane(work: str, fq: str, dev):
         torch.testing.assert_close(two[2], base[2], rtol=1e-5, atol=0)
         _say(f"sharded step t={t} over [{dev}, {dev}] on {len(lens)} reads: "
              f"equal to the unsharded step")
+        if t == 0.99:  # the step's time on one device and on two shards
+            # (host arrays in, the H2D copies included); the merge's bound:
+            # two shards' tallies read, one written, one add per slot
+            shard2 = pdi.make_sharded_align_step(di, t, devices=[dev, dev])
+            one_ms = _time_ms(lambda: step(codes, lens), dev, 5)
+            two_ms = _time_ms(lambda: shard2(codes, lens), dev, 5)
+            n_tally = di.num_nodes + di.num_graphs + len(lens) + 1
+            merge = _bound(3 * 4 * n_tally, n_tally)
+            _say(f"align step t={t} on {len(lens)} reads: one device {one_ms:.4f} "
+                 f"ms, two shards {two_ms:.4f} ms; the merge of the tallies "
+                 f"({n_tally} slots) bound {merge['bound_ms']:.6f} ms "
+                 f"({merge['bound_by']})")
 
     # the GROOT_DEVICE_QUERY=1 route of the index query, banded at 0.97
-    from groot_tpu.io import native
+    from groot_tpu_torch.io import native
 
     codes, lens = batches[0]
     q64 = native.sketch(codes, lens, K, S)
@@ -652,6 +740,7 @@ KERNEL_FUNCS = {
     "lsh_query": ("lsh_query_kernel",),
     "weight_scatter": ("weight_count_kernel", "weight_scan_kernel",
                        "weight_scatter_kernel"),
+    "pair_cascade": ("pair_cascade_kernel",),
 }
 
 
@@ -696,6 +785,7 @@ def traced_runs(work: str, fq: str, dev, plane_fn) -> None:
     runs = {
         "index": lambda: _index(work, "idx-traced", dev.type),
         "align": lambda: align_and_report(work, fq, "device", dev.type),
+        "align cascade": lambda: align_and_report(work, fq, "cascade", dev.type),
         "haplotype": lambda: _haplotype(work, "haplo-traced", dev.type),
         "data plane": plane_fn,
     }
@@ -742,18 +832,163 @@ def end_to_end(work: str, fq: str, dev) -> dict:
 
     host, host_bam, host_rows, host_s = align_and_report(work, fq, "hash", "cpu")
     _say(f"hash run: {host_s:.2f}s = {host.stats.received / host_s:.0f} reads/s")
+    hash_run = (host, host_bam, host_rows)
+    _same_as_hash("device", res, dev_bam, dev_rows, hash_run)
+    return launches, hash_run
+
+
+def _same_as_hash(engine: str, res, bam: str, rows: str, hash_run) -> None:
+    """An align run equals the hash engine's: stats, node weights (rtol
+    1e-6), order-canonical BAM records, pruned paths and report rows."""
+    host, host_bam, host_rows = hash_run
+    st = res.stats
     for f in ("received", "mapped", "multimapped", "alignment_count", "total_kmers"):
         a, b = getattr(st, f), getattr(host.stats, f)
-        _check(a == b, f"stats.{f}: device {a} != hash {b}")
+        _check(a == b, f"stats.{f}: {engine} {a} != hash {b}")
     np.testing.assert_allclose(res.node_weights, host.node_weights, rtol=1e-6)
-    _check(_bam_keys(dev_bam) == _bam_keys(host_bam), "BAM records differ")
-    _check(res.kept_paths == host.kept_paths, "pruned paths differ")
-    _check(dev_rows == host_rows, "report rows differ")
-    _check(st.alignment_count > 0 and dev_rows.strip(), "nothing aligned")
-    _say(f"device == hash: stats, {len(res.node_weights)} node weights, "
+    _check(_bam_keys(bam) == _bam_keys(host_bam), f"{engine}: BAM records differ")
+    _check(res.kept_paths == host.kept_paths, f"{engine}: pruned paths differ")
+    _check(rows == host_rows, f"{engine}: report rows differ")
+    _check(st.alignment_count > 0 and rows.strip(), f"{engine}: nothing aligned")
+    _say(f"{engine} == hash: stats, {len(res.node_weights)} node weights, "
          f"{st.alignment_count} BAM records, {len(res.kept_paths)} kept paths, "
-         f"{len(dev_rows.splitlines())} report rows")
+         f"{len(rows.splitlines())} report rows")
+
+
+def cascade_phase(work: str, fq: str, dev, hash_run) -> dict:
+    """`align --device cuda` on the cascade engine over the same reads and
+    index: the pair-cascade kernel must launch, and the run must equal the
+    hash run of phase 5."""
+    from groot_tpu_torch import _build
+
+    _build.reset_counts()
+    res, bam, rows, dt = align_and_report(work, fq, "cascade", dev.type)
+    launches = _launches(["pair_cascade"])
+    st = res.stats
+    _say(f"cascade run: {st.received} reads, {st.mapped} mapped, "
+         f"{st.alignment_count} alignments in {dt:.2f}s = "
+         f"{st.received / dt:.0f} reads/s (align command, setup included)")
+    _say("cascade stage_times:", json.dumps(
+        {k: round(v, 4) for k, v in sorted(st.stage_times.items())}))
+    _same_as_hash("cascade", res, bam, rows, hash_run)
     return launches
+
+
+def match_bits_probe(work: str, fq: str, dev) -> None:
+    """The `host` engine's match volumes (align.aligner._match_bits, a
+    torch conv1d: no hand kernel) on the card for the graph with the most
+    reads in the first batch, timed with its host packing and copies, and
+    its bound: path one-hot, read kernels and match bits moved once; one
+    multiply-add per (kernel, path row, offset, base, channel)."""
+    from groot_tpu_torch.align.aligner import GraphAligner
+    from groot_tpu_torch.align.batch_host import WindowTables
+    from groot_tpu_torch.config import Info
+    from groot_tpu_torch.index.lshe import ContainmentIndex
+    from groot_tpu_torch.pipeline import align_pipeline as ap
+
+    idx = os.path.join(work, "idx")
+    info = Info.load(os.path.join(idx, "groot.gg"))
+    index = ContainmentIndex.load(os.path.join(idx, "groot.lshe"))
+    info.attach_db(index)
+    tables = WindowTables(index, info.store)
+    batch = next(ap.batch_reads_native([fq], ap.DEFAULT_BATCH))
+    kc = (batch.lengths - K + 1).astype(np.int32)
+    rows, wins, combo_start = ap._compute_hits(
+        info, batch, kc, K, S, 0.99, tables, dev
+    )
+    gids = tables.w_graph[wins[combo_start]]
+    gid = int(np.bincount(gids).argmax())
+    reads = [batch.read(int(r)) for r in rows[combo_start][gids == gid]]
+    ga = GraphAligner(info.store, device=dev)
+    gp = ga.pack(info.store[gid])
+    bits = ga._batch_match_bits(gp, reads)
+    ms = _time_ms(lambda: ga._batch_match_bits(gp, reads), dev, 5)
+    R, _six, P, W32 = bits.shape
+    Lr_b = -(-max(max(len(r.seq) for r in reads), 32) // 32) * 32
+    Lp = gp.packed.codes.shape[1] + Lr_b
+    W = Lp - Lr_b + 1
+    bound = _bound(4 * (P * Lp * 5 + 6 * R * Lr_b * 5 + 6 * R * P * W32),
+                   2 * 6 * R * P * W * Lr_b * 5)
+    _say(f"_match_bits (host engine, torch conv1d) on graph {gid}: {R} reads, "
+         f"{P} path rows of <= {Lp - Lr_b} bp, Lr={Lr_b}: {ms:.4f} ms with "
+         f"packing and copies; bound {bound['bound_ms']:.6f} ms "
+         f"({bound['bound_by']})")
+
+
+def cascade_parity(work: str, fq: str, dev) -> dict:
+    """The pair-cascade kernel against its plain version on the card, on
+    the inputs of the largest chunk of the first batch of the reads (as
+    the cascade run packs it), both timed."""
+    from groot_tpu_torch.align import device_cascade as dc
+    from groot_tpu_torch.align.batch_host import WindowTables
+    from groot_tpu_torch.config import Info
+    from groot_tpu_torch.index.lshe import ContainmentIndex
+    from groot_tpu_torch.pipeline import align_pipeline as ap
+
+    idx = os.path.join(work, "idx")
+    info = Info.load(os.path.join(idx, "groot.gg"))
+    index = ContainmentIndex.load(os.path.join(idx, "groot.lshe"))
+    info.attach_db(index)
+    al = dc.DeviceAligner(info.store, device=dev)
+    tables = WindowTables(index, info.store)
+    al.attach_tables(tables)
+    batch = next(ap.batch_reads_native([fq], ap.DEFAULT_BATCH))
+    kc = (batch.lengths - K + 1).astype(np.int32)
+    rows, wins, combo_start = ap._compute_hits(
+        info, batch, kc, K, S, 0.99, tables, dev
+    )
+    chunks = list(al.pair_chunks(rows, wins, combo_start))
+    stack, pair_cnt, chunk = max(
+        chunks, key=lambda c: int(np.minimum(c[1][c[2]], al.P_CAP).sum()))
+    arrays, meta = al.chunk_arrays(stack, batch, rows, wins, combo_start,
+                                   pair_cnt, chunk)
+    args = (*stack.tensors(),
+            *(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays))
+    got = dc.pair_cascade(*args)
+    plain = dc.pair_cascade_torch(*args)
+    _sync(dev)
+    n = meta[3]
+    g_np, p_np = got.cpu().numpy(), plain.cpu().numpy()
+    err = _max_abs_err(g_np[:n], p_np[:n])
+    _check(err == 0.0, "pair_cascade kernel != plain")
+    _check(np.array_equal(g_np, p_np), "pair_cascade kernel != plain (pad rows)")
+    ms = _time_ms(lambda: dc.pair_cascade(*args), dev)
+    pms = _time_ms(lambda: dc.pair_cascade_torch(*args), dev, 5)
+
+    # bytes: the reads, pairs and probes in, the packed rows out, the node
+    # rows of every seed and probe, and the path rows of the graphs the
+    # chunk touches; ops: one compare for each stage-1 position of the
+    # forward strand, the fewest the stage-1 scan can take
+    (g_idx, read_codes, read_len, pair_combo, _valid, seed_idx, seed_off,
+     span_lim, probe_pair, probe_node, _rank) = arrays
+    Pb, Lb, _Nb = stack.sig
+    C, Lr = read_codes.shape
+    Np, Nq = len(pair_combo), len(probe_pair)
+    hosts = stack.host
+    npos = np.stack([h.node_pos for h in hosts])
+    nlen = np.stack([h.node_len for h in hosts])
+    plen = np.stack([h.path_len for h in hosts]).astype(np.int64)
+    term = np.stack([h.terminal_free for h in hosts])
+    W = Lb - Lr + 1
+    Wp = -(-W // dc.DB) * dc.DB
+    g = g_idx[pair_combo]
+    ss = npos[g, seed_idx].astype(np.int64)
+    b1 = np.minimum(span_lim, nlen[g, seed_idx] - 1 - seed_off).astype(np.int64)
+    base = ss + seed_off[:, None]
+    hi = np.minimum(np.minimum(base + b1[:, None], Wp - 1), plen[g] - 1)
+    hi = np.where(term[g], hi, np.minimum(hi, plen[g] - read_len[pair_combo][:, None]))
+    n_pos = int(np.where(ss >= 0, np.clip(hi - np.clip(base, 0, W - 1) + 1, 0, None), 0).sum())
+    nbytes = (sum(a.nbytes for a in arrays) + Np * (8 + Pb) * 4
+              + (Np + Nq) * (Pb + 1) * 4 + len(np.unique(g_idx)) * Pb * Lb)
+    bound = _bound(nbytes, n_pos)
+    st = np.bincount(g_np[:n, 3], minlength=5)[1:]
+    _say(f"pair_cascade on the largest chunk of batch 1 ({len(chunks)} chunks; "
+         f"C={C} combos, Lr={Lr}, Np={Np} pairs, Nq={Nq} probes, Pb={Pb}, "
+         f"Lb={Lb}; {int(g_np[:n, 0].sum())} found, stages 1-4 {st.tolist()}): "
+         f"equal to plain on every row; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+         f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": None,
+            **bound}
 
 
 def _haplotype(work: str, out: str, device: str):
@@ -781,7 +1016,7 @@ def haplotype_phase(work: str, dev):
     kernel vs its plain version on the same graphs."""
     import glob
 
-    from groot_tpu.config import HaploCmd, Info
+    from groot_tpu_torch.config import HaploCmd, Info
 
     from groot_tpu_torch import _build
     from groot_tpu_torch.em import em
@@ -820,13 +1055,19 @@ def haplotype_phase(work: str, dev):
     ms = _time_ms(lambda: em.em_batched(*args, mi, ma), dev)
     pms = _time_ms(lambda: em.run_em_batched_torch(*args, mi, ma), dev, 5)
     G, E, Pn = arrays[0].shape
+    # bytes: membership, counts and path counts in, iterations and alphas
+    # out; ops: ~4 a (ec, path) cell of each graph per round it ran
+    e_real = (arrays[0].sum(axis=2) > 0).sum(axis=1).astype(np.int64)
+    ops = 4 * int((it.cpu().numpy().astype(np.int64) * e_real
+                   * arrays[2].astype(np.int64)).sum())
+    bound = _bound(sum(x.nbytes for x in arrays) + G * 4 + G * Pn * 4, ops)
     _say(f"haplotype --device {dev.type}: {len(found)} alleles called in "
          f"{dt:.2f}s; --device cpu the same in {cpu_dt:.2f}s")
     _say(f"em_batched on {G} graphs (E <= {E}, P <= {Pn}, iterations "
          f"{int(it.min())}-{int(it.max())}): same iterations as plain (card "
          f"and CPU), max |alpha - plain| {err:.3g} = {rel:.3g} of max(1, "
          f"|alpha|); kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    return launches, {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    return launches, {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
 
 
 def accuracy_phase(work: str) -> None:
@@ -864,7 +1105,11 @@ def main(argv=None) -> int:
         launches = build_index(work, dev)
         kernels["window_sketch"] = window_parity(work, dev)
         kernels.update(phase_a_parity(work, fq, dev))
-        launches.update(end_to_end(work, fq, dev))
+        e2e_launches, hash_run = end_to_end(work, fq, dev)
+        launches.update(e2e_launches)
+        launches.update(cascade_phase(work, fq, dev, hash_run))
+        kernels["pair_cascade"] = cascade_parity(work, fq, dev)
+        match_bits_probe(work, fq, dev)
         em_launches, kernels["em_batched"] = haplotype_phase(work, dev)
         launches.update(em_launches)
         accuracy_phase(work)
@@ -886,7 +1131,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
         })
     _say(smi)
     _say(json.dumps({"kernels": rows}))

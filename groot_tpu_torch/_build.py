@@ -164,14 +164,6 @@ NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "grootio.cpp"
 _CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 
 
-def _loads(path: str) -> bool:
-    try:
-        ctypes.CDLL(path)
-        return True
-    except OSError:
-        return False
-
-
 def _native_isa(cxx: str) -> bytes:
     """The target macros -march=native resolves to on this host (e.g.
     __AVX512BW__), so a library built for one CPU is never loaded on
@@ -183,7 +175,7 @@ def _native_isa(cxx: str) -> bytes:
     return b"\n".join(sorted(res.stdout.splitlines()))
 
 
-def _build_native() -> Path:
+def build_native() -> Path:
     """Compile native/grootio.cpp for this host the way native/Makefile
     does (libdeflate when it links, zlib always) into _build/."""
     cxx = os.environ.get("CXX", "g++")
@@ -209,25 +201,12 @@ def _build_native() -> Path:
 
 
 def native_runtime() -> bool:
-    """Make the shared host runtime (groot_tpu.io.native) load here, and
-    return native.available().
+    """Load the host runtime (io.native: the committed native/libgrootio.so,
+    or one compiled for this host by `build_native`) and return
+    native.available(). Called on the main thread before the pipelines start
+    their worker threads, so a first compile happens once, up front."""
+    from .io import native
 
-    The port calls the reference's ctypes wrappers of native/grootio.cpp
-    (sketch, LSH query, winner reduce, BAM emit) rather than keeping a copy
-    of them. The committed native/libgrootio.so links libdeflate; on a host
-    without it (the H100 machine), grootio.cpp is compiled for this host
-    into _build/ and the module's library path is pointed there before its
-    first load. This is the one place the port touches that module's
-    private state (`_lib`, `_tried`, `_LIB_PATH`). The module is one per
-    process, so JAX code in the same process then uses the same library:
-    the same source, built with the same flags."""
-    from groot_tpu.io import native
-
-    with _lock:
-        if native._lib is None and not native._tried and not _loads(
-            native._LIB_PATH
-        ):
-            native._LIB_PATH = str(_build_native())
     return native.available()
 
 

@@ -37,10 +37,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from groot_tpu.graph.grootgraph import GrootGraph
-from groot_tpu.io.fastx import FastqRead
-
+from .._build import resolve_device
+from ..graph.grootgraph import GrootGraph
 from ..graph.pack import pack_graph_paths
+from ..io.fastx import FastqRead
 from ..ops.nthash import ASCII_TO_CODE, CODE_TO_ASCII, RC_CODE_NP
 
 MAX_CLIP = 1  # alignment.go:16
@@ -124,13 +124,13 @@ def _match_bits(
 
 class GraphAligner:
     """Batched exact aligner over all graphs in a store; the match volumes
-    are computed on `device`."""
+    are computed on `device` ("cuda" without a card raises)."""
 
     def __init__(
-        self, store: Dict[int, GrootGraph], references=None, device="cpu"
+        self, store: Dict[int, GrootGraph], references=None, device="cuda"
     ):
         self.store = store
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._packs: Dict[int, _GraphPack] = {}
 
     def pack(self, graph: GrootGraph) -> _GraphPack:

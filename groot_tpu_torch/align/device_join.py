@@ -44,12 +44,11 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from groot_tpu.align.batch_host import csr_expand, winners
-from groot_tpu.io import native as _native
-
 from .._build import I, I64, Kernel, P, U32, ptr
+from ..io import native as _native
 from ..ops.nthash import RC_CODE_NP
 from .aligner import NODE_SHUFFLES
+from .batch_host import csr_expand, winners
 from .hash_join import HashAligner, _splitmix64
 
 log = logging.getLogger("groot")

@@ -44,11 +44,10 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from groot_tpu.align.batch_host import winners
-from groot_tpu.graph.grootgraph import GrootGraph
-
+from ..graph.grootgraph import GrootGraph
 from ..ops.nthash import ASCII_TO_CODE, RC_CODE_NP
 from .aligner import GraphAligner, NODE_SHUFFLES, _GraphPack
+from .batch_host import winners
 
 log = logging.getLogger("groot")
 
@@ -127,7 +126,8 @@ class HashAligner:
     def __init__(self, store: Dict[int, GrootGraph], references=None):
         self.store = store
         self.references = references
-        self.legacy = NumpyGraphAligner(store, references)
+        # numpy match volumes: the fallback never leaves the host
+        self.legacy = NumpyGraphAligner(store, references, device="cpu")
         self._packs: Dict[int, _GraphPack] = {}
         # RC translation: complement ACGT (any case), everything else -> N
         # (matches CODE_TO_ASCII[RC_CODE_NP[ASCII_TO_CODE[...]]])
@@ -208,7 +208,7 @@ class HashAligner:
         import pickle
         import struct as _struct
 
-        from groot_tpu.align.batch_host import WindowTables
+        from .batch_host import WindowTables
 
         import mmap as _mmap
 
@@ -527,7 +527,7 @@ class HashAligner:
         pooled batch workers need (align_pipeline._run_align_pooled)."""
         import threading
 
-        from groot_tpu.io.native import _prefix16
+        from ..io.native import _prefix16
 
         self._anchor_pref = _prefix16(self.anchor_hash)
         self._mini_pref = _prefix16(self.mini_hash)
@@ -591,7 +591,7 @@ class HashAligner:
         n = len(cand_b)
         if n == 0:
             return np.zeros(0, dtype=bool)
-        from groot_tpu.io import native
+        from ..io import native
 
         out = native.verify(
             cand_b, cand_v, cand_row, cand_pos, codes, rc, lengths,
@@ -857,7 +857,7 @@ class HashAligner:
 
         rc = None
         phf = phr = None
-        from groot_tpu.io import native
+        from ..io import native
 
         res = native.find_matches(
             self, codes, lengths, c_read[~c_fb], c_g[~c_fb]
@@ -884,7 +884,7 @@ class HashAligner:
         # native single pass with the reference's early exit
         # (graphminion.go:60-99) when libgrootio is available; vectorized
         # numpy fallback otherwise
-        from groot_tpu.io import native
+        from ..io import native
 
         res = None
         if phf is not None:
@@ -1179,7 +1179,7 @@ class HashAligner:
             # headers and cigars in one C pass (gio_emit_records). Payloads
             # are gathered only for the winning reads (in a metagenome
             # most of a batch maps nowhere).
-            from groot_tpu.io import native
+            from ..io import native
 
             uniq = np.unique(rows)
             (idc, ido, idl, sqc, sqo, sql, quc, quo, qul) = batch.payloads(

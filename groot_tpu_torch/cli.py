@@ -25,7 +25,7 @@ from typing import List
 
 import numpy as np
 
-from groot_tpu.version import get_version
+from .version import get_version
 
 log = logging.getLogger("groot")
 
@@ -169,7 +169,7 @@ def main(argv=None) -> int:
 
 # ---------------------------------------------------------------------------
 def cmd_get(args) -> int:
-    from groot_tpu.get import get_database
+    from .get import get_database
 
     path = get_database(args.database, args.identity, args.out, args.source)
     log.info("database extracted to %s", path)
@@ -178,7 +178,7 @@ def cmd_get(args) -> int:
 
 
 def cmd_index(args) -> int:
-    from groot_tpu.config import Info
+    from .config import Info
 
     from .pipeline.index_pipeline import run_index
 
@@ -219,7 +219,7 @@ class AlignResult:
 
 def align(args) -> AlignResult:
     """The `align` command: load the index, align, prune, save graphs."""
-    from groot_tpu.config import AlignCmd, Info
+    from .config import AlignCmd, Info
 
     from .index.lshe import ContainmentIndex
     from .io import bam as bamio
@@ -312,7 +312,7 @@ def cmd_report(args) -> int:
 
 
 def cmd_haplotype(args) -> int:
-    from groot_tpu.config import HaploCmd, Info
+    from .config import HaploCmd, Info
 
     from .pipeline.haplotype import find_haplotypes, load_weighted_gfas
 
@@ -354,7 +354,7 @@ def cmd_accuracy(args) -> int:
     if args.indexDir:
         # cluster-membership decomposition of the "incorrectly aligned"
         # bin: needs the graph store for path -> cluster membership
-        from groot_tpu.config import Info
+        from .config import Info
 
         from .report.accuracy import misaligned_breakdown
 

@@ -216,9 +216,10 @@ class EMRunner:
         lengths: Dict[int, int],
         ec_map: Dict[int, List[int]],
         counts: Dict[int, float],
-        device="cpu",
+        device="cuda",
     ):
         _check_iterations(min_iterations, num_iterations)
+        self.device = resolve_device(device)
         self.path_ids = sorted(paths)
         dense = {p: i for i, p in enumerate(self.path_ids)}
         ecs = sorted(ec_map)
@@ -230,7 +231,6 @@ class EMRunner:
             self.counts[e] = counts[ec]
         self.num_iterations = num_iterations
         self.min_iterations = min_iterations
-        self.device = device
         self.iterations_ran = 0
         self.alpha: np.ndarray | None = None
 
@@ -252,7 +252,7 @@ class EMRunner:
 
 
 def run_em_on_graph(graph, min_iterations: int, num_iterations: int,
-                    device="cpu") -> None:
+                    device="cuda") -> None:
     """GrootGraph.RunEM (paths.go:32-69)."""
     nodes = _ec_nodes(graph)
     em = EMRunner(
@@ -269,11 +269,12 @@ def run_em_on_graph(graph, min_iterations: int, num_iterations: int,
 
 
 def run_em_on_graphs(graphs, min_iterations: int, num_iterations: int,
-                     device="cpu") -> None:
+                     device="cuda") -> None:
     """RunEM over many graphs as one padded batch on `device`; equivalent
     to run_em_on_graph per graph (the reference runs one goroutine per
     graph, haplotype.go:95-119)."""
     _check_iterations(min_iterations, num_iterations)
+    device = resolve_device(device)
     if not graphs:
         return
     membership, counts, n_paths, path_ids = padded_batch(graphs)

@@ -21,9 +21,8 @@ from typing import List
 
 import numpy as np
 
-from groot_tpu.graph.grootgraph import GrootGraph
-
 from ..ops.nthash import ASCII_TO_CODE
+from .grootgraph import GrootGraph
 
 
 @dataclass

@@ -33,9 +33,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from groot_tpu.io import native
-
 from .._build import I, Kernel, P, ptr
+from ..io import native
 from .window import Key
 
 MAX_PER_BAND = 24  # max candidates gathered per (read, band) before dedup

@@ -37,11 +37,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from groot_tpu.graph.grootgraph import GrootGraph
-from groot_tpu.io import native
-
 from .._build import I, I64, Kernel, P, ptr
+from ..graph.grootgraph import GrootGraph
 from ..graph.pack import PackedPaths, pack_graph_paths
+from ..io import native
 from ..ops import nthash
 
 WINDOW_SKETCH = Kernel(

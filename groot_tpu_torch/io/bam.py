@@ -19,9 +19,8 @@ import zlib
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
-from groot_tpu.version import get_version
-
 from ..align.aligner import AlignmentRecord
+from ..version import get_version
 
 # SAM flags
 FLAG_UNMAPPED = 0x4
@@ -141,7 +140,7 @@ class BgzfWriter:
         self.fh = fh
         self._parts: List[bytes] = []
         self._size = 0
-        from groot_tpu.io import native
+        from ..io import native
 
         self._native = native.bgzf_many if native.available() else None
         import queue
@@ -464,7 +463,7 @@ class BamWriter:
         hv[:, 7] = np.uint32(0xFFFFFFFF)  # next_pos = -1
         hv[:, 8] = 0                      # tlen
 
-        from groot_tpu.io import native
+        from ..io import native
 
         g_cs32 = start_clips[group_of].astype(np.uint32)
         g_ce32 = end_clips[group_of].astype(np.uint32)
@@ -595,7 +594,7 @@ def bgzf_decompress(raw, as_array: bool = False):
         blocks.append((comp_off, bsize - 12 - xlen - 8, isize))
         total += isize
         off += bsize
-    from groot_tpu.io import native as _native
+    from ..io import native as _native
 
     if blocks:
         import numpy as _np

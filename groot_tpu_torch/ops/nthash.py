@@ -57,6 +57,13 @@ for _i, _b in enumerate(b"ACGT"):
 CODE_TO_ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8).copy()
 
 
+def encode_seq(seq) -> np.ndarray:
+    """bytes/str DNA -> uint8 code array."""
+    if isinstance(seq, str):
+        seq = seq.encode()
+    return ASCII_TO_CODE[np.frombuffer(bytes(seq), dtype=np.uint8)]
+
+
 # ---------------------------------------------------------------------------
 # NumPy golden implementation (host / parity checks)
 # ---------------------------------------------------------------------------

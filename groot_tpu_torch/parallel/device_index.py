@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._build import I, I64, Kernel, P, ptr
+from .._build import I, I64, Kernel, P, ptr, resolve_device
 from ..index.lshe import (
     MAX_PER_BAND, ContainmentIndex, query_device, query_device_torch,
 )
@@ -79,10 +79,12 @@ class DeviceIndex:
     @classmethod
     def build(
         cls, index: ContainmentIndex, store, kmer_size: int,
-        threshold: float = 0.99, device="cpu",
+        threshold: float = 0.99, device="cuda",
     ) -> "DeviceIndex":
         """The reference's arrays from the port's index (always a v2
-        struct-of-arrays) and graph store, on `device`."""
+        struct-of-arrays) and graph store, on `device` ("cuda" without a
+        card raises)."""
+        dev = resolve_device(device)
         index.prepare()
         K = index.optimal_k(index.num_window_kmers, threshold)
         t = index._tables[K]
@@ -123,7 +125,6 @@ class DeviceIndex:
             index._build_full_table()
         fsig, forder = index._full_table
         cf = int(np.unique(fsig, return_counts=True)[1].max()) if len(fsig) else 1
-        dev = torch.device(device)
 
         def u32_bits(a):
             return torch.from_numpy(

@@ -35,6 +35,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .._build import resolve_device
+
 RTOL = 2e-5
 THRESHOLD = 0.99  # groot's default: the full-equality mode, no per-band cap
 N_TINY_READS = 301  # three batches of 128, the last one odd
@@ -42,7 +44,7 @@ N_TINY_READS = 301  # three batches of 128, the last one odd
 
 def _tiny_inputs(work: str, seed: int, n_reads: int):
     """The seeded tiny database, indexed on the CPU, and reads from it."""
-    from groot_tpu.config import Info
+    from ..config import Info
 
     from .. import synth
     from ..ops.nthash import ASCII_TO_CODE
@@ -69,7 +71,7 @@ def _tiny_inputs(work: str, seed: int, n_reads: int):
 def _batches(args, work: str) -> Tuple[object, object, List[Tuple[np.ndarray, np.ndarray]]]:
     """(info, index, [(codes, lengths), ...]) — the same on every rank."""
     if args.index:
-        from groot_tpu.config import Info
+        from ..config import Info
 
         from ..index.lshe import ContainmentIndex
         from ..pipeline.align_pipeline import DEFAULT_BATCH, batch_reads_native
@@ -91,8 +93,8 @@ def _batches(args, work: str) -> Tuple[object, object, List[Tuple[np.ndarray, np
 def _host_replay(info, index, batches, threshold: float):
     """Node weights and graph k-mers (by graph id) of the native host
     query's hits, weighted by WeightAccumulator.add_pairs (float64)."""
-    from groot_tpu.align.batch_host import WeightAccumulator, WindowTables
-    from groot_tpu.io import native
+    from ..align.batch_host import WeightAccumulator, WindowTables
+    from ..io import native
 
     from ..ops import nthash
 
@@ -191,7 +193,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nproc", type=int, default=2)
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
-    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--index", help="index directory (groot.gg, groot.lshe)")
     ap.add_argument("--reads", help="FASTQ (with --index)")
     ap.add_argument("--seed", type=int, default=0)
@@ -203,6 +205,7 @@ def main(argv=None) -> int:
         ap.error("--nproc must be >= 1")
     if args.backend == "nccl" and args.device != "cuda":
         ap.error("--backend nccl needs --device cuda")
+    resolve_device(args.device)  # "cuda" without a card raises here
     # the workers' target by its module path (not __main__ under -m)
     from groot_tpu_torch.parallel.nproc import _worker as target
 

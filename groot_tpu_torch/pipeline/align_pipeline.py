@@ -17,11 +17,16 @@ GROOT_ENGINE (default `device`):
   hash   — the host hash-join cascade (align.hash_join), sketching with
            the native runtime;
   host   — the legacy per-Key aligner (align.aligner), its match volumes a
-           torch conv on `device`.
+           torch conv on `device`;
+  cascade — the match-volume cascade (align.device_cascade): batches are
+           sketched with the KHF-sketch kernel on `device`, every chunk of
+           (read, mapping) pairs runs the pair-cascade kernel, and the host
+           replays weights and builds records; one batch's cascade is
+           collected while the next is sketched and submitted.
 
 `device` is explicit: "cuda" with no card raises, nothing falls back to
 the CPU. The reference's transport probe and tunnel-aware engine choice are
-not ported, and its `cascade` engine is not ported yet.
+not ported.
 """
 
 from __future__ import annotations
@@ -35,15 +40,14 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from groot_tpu.align.batch_host import WeightAccumulator, WindowTables, sort_hits
-from groot_tpu.config import Info
-from groot_tpu.graph.grootgraph import Store
-from groot_tpu.io import native
-from groot_tpu.io.fastx import FastqRead, stream_fastq
-
 from .._build import native_runtime, resolve_device
 from ..align.aligner import GraphAligner
+from ..align.batch_host import WeightAccumulator, WindowTables, sort_hits
+from ..config import Info
+from ..graph.grootgraph import Store
+from ..io import native
 from ..io import bam as bamio
+from ..io.fastx import FastqRead, stream_fastq
 from ..ops import nthash
 from ..ops.sketch import sketch_reads_u64
 from ..parallel.mesh import data_devices
@@ -53,16 +57,12 @@ log = logging.getLogger("groot")
 DEFAULT_BATCH = 2048
 PIPE_DEPTH = 2  # device-engine batches in flight between submit and fetch
 GUNZIP_MAX_BYTES = 256 << 20
-ENGINES = ("device", "hash", "host")
+ENGINES = ("device", "hash", "host", "cascade")
 
 
 def select_engine() -> str:
     """GROOT_ENGINE, default `device`."""
     engine = os.environ.get("GROOT_ENGINE", "").strip().lower() or "device"
-    if engine == "cascade":
-        raise NotImplementedError(
-            "GROOT_ENGINE=cascade (the match-volume cascade) is not ported"
-        )
     if engine not in ENGINES:
         raise ValueError(f"unknown GROOT_ENGINE: {engine}")
     return engine
@@ -414,6 +414,13 @@ def _make_aligner(engine: str, info: Info, dev: torch.device, references):
     matches the index, else they are built (and the sidecar refreshed)."""
     if engine == "host":
         return GraphAligner(info.store, references, device=dev), None
+    if engine == "cascade":
+        from ..align.device_cascade import DeviceAligner
+
+        aligner = DeviceAligner(info.store, references, device=dev)
+        tables = WindowTables(info.db, info.store)
+        aligner.attach_tables(tables)
+        return aligner, tables
     if engine == "device":
         from ..align.device_join import DeviceJoinAligner
 
@@ -454,7 +461,7 @@ def run_align(
     device="cuda",
 ) -> AlignStats:
     """ReadMapper equivalent: map/weight/align every read. Returns stats."""
-    from groot_tpu.hostmem import tune as _malloc_tune
+    from ..hostmem import tune as _malloc_tune
 
     _malloc_tune()  # keep batch buffers on the heap (see hostmem.py)
     native_runtime()
@@ -680,26 +687,35 @@ def _run_align_sequential(
     info, batches, aligner, bam_writer, stats, k, s, t, tables, acc,
     batch_size, t_start, sketch_dev,
 ) -> Tuple[int, int]:
-    """One batch at a time on the calling thread: the `host` engine, the
-    `hash` engine without the native runtime, and --noAlign runs."""
+    """One batch at a time on the calling thread: the `host` and `cascade`
+    engines, the `hash` engine without the native runtime, and --noAlign
+    runs. For `cascade` the loop is one deep: batch i's chunks are
+    collected after batch i+1 is sketched and submitted, so the card works
+    while the host replays weights and builds records."""
     import time as _time
 
     raw_count = 0
     length_total = 0
+    pending = None
     for batch in batches:
         raw_count += batch.n_valid
         length_total += int(batch.lengths[: batch.n_valid].sum())
         if batch.n < batch_size:
             _pad_batch(batch, batch_size, k)
-        _process_batch(
+        nxt = _process_batch(
             info, batch, aligner, bam_writer, stats, k, s, t, tables, acc,
             sketch_dev,
         )
+        if pending is not None:
+            aligner.collect_pairs(*pending, acc, bam_writer, stats)
+        pending = nxt
         log.info(
             "\tprocessed %d reads (%.0f reads/s)",
             raw_count,
             raw_count / max(_time.time() - t_start, 1e-9),
         )
+    if pending is not None:
+        aligner.collect_pairs(*pending, acc, bam_writer, stats)
     return raw_count, length_total
 
 
@@ -893,7 +909,9 @@ def _process_batch(
     sketch_dev=None,
 ) -> None:
     """Sketch, query and align one padded batch on the calling thread (the
-    pooled and sequential loops; the device engine has its own)."""
+    pooled and sequential loops; the device engine has its own). Returns
+    the `cascade` engine's pending collect (calls, batch, rows, wins,
+    kmer counts), else None."""
     if (batch.lengths[: batch.n_valid] < k).any():
         short = int(batch.lengths[: batch.n_valid].min())
         raise ValueError(
@@ -918,11 +936,14 @@ def _process_batch(
         if info.sketch.no_exact_align:
             if len(rows):
                 acc.add_pairs(wins, kc_read[rows])
-            return
+            return None
+        if not hasattr(aligner, "process_batch"):  # cascade: collect later
+            calls = aligner.submit_pairs(batch, rows, wins, combo_start)
+            return (calls, batch, rows, wins, kc_read)
         aligner.process_batch(
             batch, rows, wins, combo_start, kc_read, acc, bam_writer, stats
         )
-        return
+        return None
 
     # `host` engine: per-read {graph: [Key]} hits, grouped per graph (the
     # per-graph minion queues of boss.go:122-131 become a batch dimension);

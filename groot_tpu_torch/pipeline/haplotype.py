@@ -12,12 +12,12 @@ import logging
 import re
 from typing import List
 
-from groot_tpu.config import Info
-from groot_tpu.graph.grootgraph import GrootGraph, Store
-from groot_tpu.io.gfa import parse_gfa
-from groot_tpu.version import get_version
-
+from .._build import resolve_device
+from ..config import Info
 from ..em.em import process_em_paths, run_em_on_graphs
+from ..graph.grootgraph import GrootGraph, Store
+from ..io.gfa import parse_gfa
+from ..version import get_version
 
 log = logging.getLogger("groot")
 
@@ -41,8 +41,10 @@ def load_weighted_gfas(info: Info, gfa_files: List[str]) -> List[GrootGraph]:
     return graphs
 
 
-def find_haplotypes(info: Info, graphs: List[GrootGraph], device="cpu") -> List[str]:
-    """EMpathFinder + HaplotypeParser (haplotype.go:91-181)."""
+def find_haplotypes(info: Info, graphs: List[GrootGraph], device="cuda") -> List[str]:
+    """EMpathFinder + HaplotypeParser (haplotype.go:91-181); the EM runs on
+    `device` ("cuda" without a card raises)."""
+    device = resolve_device(device)
     for g in graphs:
         info.store[g.graph_id] = g
     mean_iterations = 0

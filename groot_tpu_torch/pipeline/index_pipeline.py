@@ -5,8 +5,8 @@ pipeline processes in src/pipeline/index.go (MSAconverter -> GraphSketcher
 -> SketchIndexer) wired by cmd/index.go:108-131. Graphs build on the host,
 the window sketches of all graphs come from one pass on `device`
 (index.window: the window-sketch kernel on a card, the native runtime on the
-CPU), and the files written — groot.gg (a pickle of
-groot_tpu.config.Info), groot.lshe and the groot.align sidecar — are the
+CPU), and the files written — groot.gg (the pickled config.Info, under the
+reference's class names), groot.lshe and the groot.align sidecar — are the
 ones groot_tpu writes and reads."""
 
 from __future__ import annotations
@@ -18,14 +18,13 @@ from typing import List, Tuple
 
 import numpy as np
 
-from groot_tpu.config import Info
-from groot_tpu.graph.grootgraph import GrootGraph, Store
-from groot_tpu.io.fastx import read_msa
-from groot_tpu.io.msa2gfa import msa_to_gfa
-
 from .._build import native_runtime, resolve_device
+from ..config import Info
+from ..graph.grootgraph import GrootGraph, Store
 from ..index.lshe import ContainmentIndex, _KeysView
 from ..index.window import sketch_graphs_soa
+from ..io.fastx import read_msa
+from ..io.msa2gfa import msa_to_gfa
 
 log = logging.getLogger("groot")
 
@@ -163,7 +162,7 @@ def sketch_and_index(
 def run_index(info: Info, msa_dir: str, device) -> None:
     """The full `groot index` command (cmd/index.go:57-133), the window
     sketches on `device` ("cuda" without a card raises)."""
-    from groot_tpu.hostmem import tune as _malloc_tune
+    from ..hostmem import tune as _malloc_tune
 
     dev = resolve_device(device)
     _malloc_tune()  # keep batch buffers on the heap (see hostmem.py)
@@ -187,7 +186,7 @@ def run_index(info: Info, msa_dir: str, device) -> None:
     # groot.align sidecar: the aligner's setup arrays are pure functions of
     # the index, so build them once here instead of on every align startup
     try:
-        from groot_tpu.align.batch_host import WindowTables
+        from ..align.batch_host import WindowTables
 
         from ..align.hash_join import HashAligner
         from ..io.bam import build_references

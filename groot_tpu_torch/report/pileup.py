@@ -129,7 +129,7 @@ def _report_fast(
     per record in one C pass; the per-base pileup is a single global
     range-update (+1/-1 diffs + cumsum over the concatenated reference
     coordinate space). Byte-identical output to the record-loop path."""
-    from groot_tpu.io import native
+    from ..io import native
 
     if not native.available():
         return None

@@ -1,7 +1,8 @@
 """Synthetic clustered ARG databases and read sets, made from a seed.
 
 Used by the port's tests (a few small clusters) and by chip_smoke.py (a
-database at the scale of arg-annot.90: 583 clusters, ~1,700 alleles). A
+database at the scale of arg-annot.90: 583 clusters, ~1,700 alleles).
+`cascade_case` makes the inputs of one pair-cascade call directly. A
 cluster is a founder sequence plus alleles at most `max_div` divergent from
 it (substitutions, plus a few short deletions that become MSA gaps); each
 cluster is written as an aligned FASTA `cluster-N.msa`, the layout `index`
@@ -21,6 +22,7 @@ _ACGT = np.frombuffer(b"ACGT", np.uint8)
 _COMP = np.zeros(256, np.uint8)
 for _a, _b in zip(b"ACGTN", b"TGCAN"):
     _COMP[_a] = _b
+_RC_CODE = np.array([3, 2, 1, 0, 4], np.uint8)
 
 
 def make_clusters(
@@ -147,3 +149,116 @@ def write_fastq(
                     i, start, start + len(s) - 1, len(s), allele.encode()
                 )
             fh.write(b"@%s\n%s\n+\n%s\n" % (name, s, b"I" * len(s)))
+
+
+def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
+              pad_pairs=3, pad_probes=5, short=False):
+    """Seeded inputs of the pair cascade (groot_tpu's `_pair_cascade`, the
+    port's `align.device_cascade.pair_cascade`) as numpy arrays, and the
+    number of real pairs: Gs graphs of P aligned rows whose
+    segments are shared or variant nodes, reads cut from the rows (some
+    reverse complemented, with a first/last/middle base changed or an N),
+    1-3 mappings per read with 0-5 contained-node probes each, then pad
+    pairs and pad probes as the reference's packer makes them. `short`
+    makes paths long enough that reads reach past the last window."""
+    rng = np.random.default_rng(seed)
+    codes = np.full((Gs, Pb, Lb), 4, np.uint8)
+    plen = np.zeros((Gs, Pb), np.int32)
+    term = np.zeros((Gs, Pb), bool)
+    npos = np.full((Gs, Nb, Pb), -1, np.int32)
+    nlen = np.zeros((Gs, Nb), np.int32)
+    segs_of = []
+    for g in range(Gs):
+        Lg = int(rng.integers(Lb - Lr - 10, Lb - 4) if short
+                 else rng.integers(Lb // 2, Lb - Lr))
+        base = rng.integers(0, 4, Lg).astype(np.uint8)
+        base[rng.random(Lg) < 0.01] = 4
+        n_seg = (Nb - 1) // 2
+        cuts = np.sort(rng.choice(np.arange(4, Lg - 4), n_seg - 1, replace=False))
+        bounds = list(zip([0, *cuts.tolist()], [*cuts.tolist(), Lg]))
+        segs = []
+        node = 0
+        rows = np.tile(base, (P, 1))
+        for a, b in bounds:
+            variants = [node]
+            nlen[g, node] = b - a
+            node += 1
+            if rng.random() < 0.5:  # a variant node at the same coordinates
+                variants.append(node)
+                nlen[g, node] = b - a
+                node += 1
+            for r in range(P):
+                v = variants[int(rng.integers(len(variants)))]
+                npos[g, v, r] = a
+                if v != variants[0]:
+                    pos = int(rng.integers(a, b))
+                    rows[r, pos] = (rows[r, pos] + 1) % 4
+            segs.append((a, b, variants))
+        segs_of.append(segs)
+        for r in range(P):
+            plen[g, r] = Lg - int(rng.integers(0, 3))
+            codes[g, r, : plen[g, r]] = rows[r, : plen[g, r]]
+            term[g, r] = rng.random() < 0.4
+    read_codes = np.full((C, Lr), 4, np.uint8)
+    read_len = np.zeros(C, np.int32)
+    g_idx = rng.integers(0, Gs, C).astype(np.int32)
+    pairs, probes = [], []
+    for c in range(C):
+        g = int(g_idx[c])
+        r = int(rng.integers(P))
+        rl = int(rng.integers(Lr - 12, Lr + 1)) if rng.random() < 0.8 else int(rng.integers(2, 12))
+        s = int(rng.integers(0, max(plen[g, r] - rl // 2, 1)))
+        seq = codes[g, r, s : s + rl].copy()
+        rl = len(seq)
+        wild = seq == 4
+        seq[wild] = rng.integers(0, 4, int(wild.sum()))
+        kind = rng.choice(["exact", "exact", "first", "last", "mid", "N"])
+        if rl > 2:
+            i = {"first": 0, "last": rl - 1, "mid": rl // 2}.get(str(kind))
+            if i is not None:
+                seq[i] = (seq[i] + 1) % 4
+            elif kind == "N":
+                seq[int(rng.integers(rl))] = 4
+        if rng.random() < 0.5:
+            seq = _RC_CODE[seq][::-1]
+        read_codes[c, :rl] = seq
+        read_len[c] = rl
+        segs = segs_of[g]
+        near = [i for i, (a, b, _v) in enumerate(segs) if a <= s + 20 and b >= s - 20]
+        for _m in range(int(rng.integers(1, 4))):
+            si = near[int(rng.integers(len(near)))]
+            a, _b, variants = segs[si]
+            seed_node = variants[int(rng.integers(len(variants)))]
+            shift = 0 if rng.random() < 0.5 else int(rng.integers(-4, 3))
+            off = max(s - a + shift, 0)
+            span = int(rng.choice([-1, 0, 2, 5, 20, 60]))
+            pairs.append((c, seed_node, off, span))
+            cand = sorted({v for i in near for v in segs[i][2]})
+            n_p = int(rng.integers(0, min(6, len(cand)) + 1))
+            probes.append(sorted(rng.choice(cand, n_p, replace=False).tolist()))
+    n_real = len(pairs)
+    Np = n_real + pad_pairs
+    pad_node = Nb - 1
+    pair_combo = np.zeros(Np, np.int32)
+    pair_valid = np.zeros(Np, bool)
+    seed_idx = np.full(Np, pad_node, np.int32)
+    seed_off = np.zeros(Np, np.int32)
+    span_lim = np.full(Np, -1, np.int32)
+    probe_pair, probe_node, probe_rank = [], [], []
+    for p, ((c, node, off, span), pr) in enumerate(zip(pairs, probes)):
+        pair_combo[p], pair_valid[p] = c, True
+        seed_idx[p], seed_off[p], span_lim[p] = node, off, span
+        for rank, nd in enumerate(pr):
+            probe_pair.append(p)
+            probe_node.append(nd)
+            probe_rank.append(rank)
+    probe_pair += [Np - 1] * pad_probes
+    probe_node += [pad_node] * pad_probes
+    probe_rank += [0] * pad_probes
+    arrays = (
+        codes, npos, nlen, plen, term, g_idx, read_codes, read_len,
+        pair_combo, pair_valid, seed_idx, seed_off, span_lim,
+        np.array(probe_pair, np.int32), np.array(probe_node, np.int32),
+        np.array(probe_rank, np.int32),
+    )
+    return arrays, n_real

@@ -17,10 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from groot_tpu.config import HaploCmd, Info
 from groot_tpu.pipeline import haplotype as ref_haplotype
 from groot_tpu.report import accuracy as ref_accuracy
 from groot_tpu_torch import cli, synth
+from groot_tpu_torch.config import HaploCmd, Info
 from groot_tpu_torch.pipeline import haplotype
 from groot_tpu_torch.report import accuracy
 
@@ -139,6 +139,57 @@ def test_device_cuda_raises_without_card(aligned, tmp_path, cmd):
     }[cmd]
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main([*argv, "--device", "cuda", "--log", str(tmp_path / "l.log")])
+
+
+def _tiny_graph():
+    from groot_tpu_torch.graph.grootgraph import GrootGraph
+    from groot_tpu_torch.io.msa2gfa import msa_to_gfa
+
+    rows = [("g~~~a", "ACGTACGTAACCGGTT"), ("g~~~b", "ACGTACCTAACCGGTT")]
+    return GrootGraph.from_gfa(msa_to_gfa(rows, drop_consensus=False), 0)
+
+
+def _default_device_calls():
+    from groot_tpu_torch.align.aligner import GraphAligner
+    from groot_tpu_torch.align.device_cascade import DeviceAligner
+    from groot_tpu_torch.em import em
+    from groot_tpu_torch.parallel import nproc
+    from groot_tpu_torch.parallel.device_index import DeviceIndex
+
+    return {
+        "find_haplotypes": lambda: haplotype.find_haplotypes(Info(), [_tiny_graph()]),
+        "EMRunner": lambda: em.EMRunner(10, 1, {0: "a"}, {0: 10}, {1: [0]}, {1: 1.0}),
+        "run_em_on_graph": lambda: em.run_em_on_graph(_tiny_graph(), 1, 10),
+        "run_em_on_graphs": lambda: em.run_em_on_graphs([], 1, 10),
+        "DeviceIndex.build": lambda: DeviceIndex.build(None, {}, 31),
+        "GraphAligner": lambda: GraphAligner({}),
+        "DeviceAligner": lambda: DeviceAligner({}),
+        "nproc": lambda: nproc.main(["--nproc", "1"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["find_haplotypes", "EMRunner",
+                                  "run_em_on_graph", "run_em_on_graphs",
+                                  "DeviceIndex.build", "GraphAligner",
+                                  "DeviceAligner", "nproc"])
+def test_entry_points_default_to_the_card(name):
+    """Each entry point runs on the card unless given device="cpu": with no
+    card, its default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _default_device_calls()[name]()
+
+
+def test_cascade_engine_cuda_raises_without_card(aligned, tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    tmp, _graph_dir, _bam = aligned
+    monkeypatch.setenv("GROOT_ENGINE", "cascade")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["align", "-i", str(tmp / "idx"), "-f", str(tmp / "reads.fq"),
+                  "--bamOut", str(tmp_path / "x.bam"), "-g", str(tmp_path / "g"),
+                  "--device", "cuda", "--log", str(tmp_path / "l.log")])
 
 
 def test_profiling_writes_a_trace(aligned, tmp_path, monkeypatch, capsys):

@@ -14,16 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from groot_tpu.align.batch_host import WindowTables
 from groot_tpu.align.device_join import DeviceJoinAligner as RefAligner
 from groot_tpu.align.device_join import _offsets as ref_offsets
 from groot_tpu.align.device_join import seed_scan as ref_seed_scan
-from groot_tpu.config import Info
-from groot_tpu.io.fastx import FastqRead
 from groot_tpu_torch import synth
 from groot_tpu_torch.align import device_join as dj
+from groot_tpu_torch.align.batch_host import WindowTables
+from groot_tpu_torch.config import Info
 from groot_tpu_torch.index.lshe import ContainmentIndex
 from groot_tpu_torch.io import bam as bamio
+from groot_tpu_torch.io.fastx import FastqRead
 from groot_tpu_torch.pipeline.align_pipeline import _compute_hits, _make_batch
 from groot_tpu_torch.pipeline.index_pipeline import run_index
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions.
 
-This file imports no JAX, so it runs on the machine with the card (which
-has none): `python -m pytest tests/test_torch_kernels.py -m cuda`. The
+This file imports no JAX, so it runs on a machine with a card and no JAX:
+`python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
+(tests/conftest.py imports JAX). The
 card tests skip themselves where torch.cuda.is_available() is false; the
 registry test runs everywhere."""
 
@@ -13,18 +14,19 @@ import numpy as np
 import pytest
 import torch
 
-from groot_tpu.align.batch_host import WindowTables
-from groot_tpu.config import Info
-from groot_tpu.io.fastx import FastqRead
-from groot_tpu.graph.grootgraph import GrootGraph
-from groot_tpu.io import native
-from groot_tpu.io.msa2gfa import msa_to_gfa
 from groot_tpu_torch import _build, synth
+from groot_tpu_torch.align import device_cascade as dc
 from groot_tpu_torch.align import device_join as dj
+from groot_tpu_torch.align.batch_host import WindowTables
+from groot_tpu_torch.config import Info
 from groot_tpu_torch.em import em
+from groot_tpu_torch.graph.grootgraph import GrootGraph
 from groot_tpu_torch.index import lshe, window
 from groot_tpu_torch.index.lshe import ContainmentIndex
 from groot_tpu_torch.io import bam as bamio
+from groot_tpu_torch.io import native
+from groot_tpu_torch.io.fastx import FastqRead
+from groot_tpu_torch.io.msa2gfa import msa_to_gfa
 from groot_tpu_torch.ops import nthash
 from groot_tpu_torch.ops.sketch import KHF_SKETCH, khf_sketch
 from groot_tpu_torch.parallel import device_index as pdi
@@ -53,6 +55,7 @@ def test_kernel_registry_names_sources_and_replaced_functions():
         "em_batched": "def _run_em_batched",
         "lsh_query": "def _query_device",
         "weight_scatter": "def align_step",
+        "pair_cascade": "def _pair_cascade",
     }
     assert set(_build.KERNELS) == set(want)
     for name, kern in _build.KERNELS.items():
@@ -400,3 +403,68 @@ def test_align_step_on_card_matches_plain_and_shards(cuda, tmp_path, t):
     for j in (0, 3, 4, 5):
         assert torch.equal(two[j], base[j]), j
     torch.testing.assert_close(two[2], base[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(seed=0), dict(seed=1, Gs=2, P=20, Pb=32, Lb=256, Lr=64, C=20, Nb=40),
+    dict(seed=2, Gs=2, P=40, Pb=64, Lb=224, Lr=32, C=16, Nb=30, pad_pairs=0,
+         pad_probes=0),
+    dict(seed=3, Lb=192, Lr=64, short=True),
+    dict(seed=5, Gs=4, P=14, Pb=16, Lb=1024, Lr=160, C=200, Nb=64),
+])
+def test_pair_cascade_kernel_matches_plain(cuda, case):
+    """Every row, pads included, equals the plain version on the card: reads
+    with N and read_len < Lr, terminal-free rows, pairs without probes,
+    stage-2 winners past the first probe, reads past the last window."""
+    arrays, _n_real = synth.cascade_case(**case)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = dc.PAIR_CASCADE.launches
+    got = dc.pair_cascade(*args)
+    torch.cuda.synchronize()
+    assert dc.PAIR_CASCADE.launches == before + 1
+    want = dc.pair_cascade_torch(*args)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), dc.pair_cascade_torch(*(torch.from_numpy(a)
+                                                          for a in arrays)))
+    assert int(got[:, 0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cascade_aligner_on_card_matches_cpu(cuda, tmp_path):
+    """align_read_batch on the card (the kernel) equals the CPU's (the plain
+    version): records, mappings weighted and node weights."""
+    alleles = synth.tiny_db(str(tmp_path / "msa"))
+    run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+                   index_dir=str(tmp_path / "idx")), str(tmp_path / "msa"), "cpu")
+    info = Info.load(str(tmp_path / "idx" / "groot.gg"))
+    index = ContainmentIndex.load(str(tmp_path / "idx" / "groot.lshe"))
+    seqs, _which, _starts = synth.sample_reads(
+        np.random.default_rng(3), alleles, 300, lengths=(60, 100, 150),
+        n_frac=0.05, tail_frac=0.2,
+    )
+    reads = [FastqRead(id=b"@c%d" % i, seq=s, qual=b"I" * len(s))
+             for i, s in enumerate(seqs)]
+    batch = _make_batch(reads)
+    kc = (batch.lengths - K + 1).astype(np.int32)
+    q64 = khf_sketch(torch.from_numpy(batch.codes).to(cuda),
+                     torch.from_numpy(batch.lengths).to(cuda), K, S)
+    hits = index.query_batch(q64.cpu().numpy().view(np.uint64), kc, 0.99)
+    per_graph = {}
+    for read, res, n in zip(reads, hits, kc):
+        for gid, keys in res.items():
+            per_graph.setdefault(gid, []).append((read, keys, float(n)))
+    out = {}
+    for dev in (cuda, "cpu"):
+        store = copy.deepcopy(info.store)
+        al = dc.DeviceAligner(store, device=dev)
+        before = dc.PAIR_CASCADE.launches
+        recs = [vars(r) for gid in sorted(per_graph)
+                for records, _n in al.align_read_batch(store[gid], per_graph[gid])
+                for r in records]
+        launched = dc.PAIR_CASCADE.launches - before
+        w = [n.kmer_freq for _g, g in sorted(store.items()) for n in g.sorted_nodes]
+        out[str(dev)] = (recs, w, launched)
+    assert out["cuda"][2] > 0 and out["cpu"][2] == 0
+    assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) > 50
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-12)

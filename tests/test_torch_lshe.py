@@ -13,12 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from groot_tpu.config import Info
+from groot_tpu.config import Info as RefInfo
 from groot_tpu.index.lshe import ContainmentIndex as RefIndex
 from groot_tpu.io import native
 from groot_tpu.ops import nthash as ref_nthash
 from groot_tpu.pipeline.index_pipeline import run_index as ref_run_index
 from groot_tpu_torch import synth
+from groot_tpu_torch.config import Info
 from groot_tpu_torch.index import lshe
 from groot_tpu_torch.index.lshe import ContainmentIndex
 from groot_tpu_torch.ops.nthash import ASCII_TO_CODE
@@ -33,10 +34,10 @@ def indexes(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lshe")
     alleles = synth.tiny_db(str(tmp / "msa"))
     out = {}
-    for name, fn in (("port", lambda i, m: run_index(i, m, "cpu")),
-                     ("ref", ref_run_index)):
+    for name, fn, cfg in (("port", lambda i, m: run_index(i, m, "cpu"), Info),
+                          ("ref", ref_run_index, RefInfo)):
         d = str(tmp / name)
-        fn(Info(kmer_size=K, sketch_size=S, window_size=W, index_dir=d),
+        fn(cfg(kmer_size=K, sketch_size=S, window_size=W, index_dir=d),
            str(tmp / "msa"))
         out[name] = os.path.join(d, "groot.lshe")
     reads, _which, _starts = synth.sample_reads(

@@ -19,12 +19,11 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
-from groot_tpu.align.batch_host import WindowTables
 from groot_tpu.align.device_join import DeviceJoinAligner as RefAligner
-from groot_tpu.config import AlignCmd, Info
+from groot_tpu.config import AlignCmd as RefAlignCmd
+from groot_tpu.config import Info as RefInfo
 from groot_tpu.index.lshe import ContainmentIndex as RefIndex
 from groot_tpu.io import bam as ref_bamio
-from groot_tpu.io.fastx import FastqRead
 from groot_tpu.parallel import device_index as rdi
 from groot_tpu.parallel.mesh import make_mesh
 from groot_tpu.parallel.mesh import pad_batch_for_mesh as ref_pad
@@ -32,8 +31,11 @@ from groot_tpu.pipeline import align_pipeline as ref_pipeline
 from groot_tpu.pipeline.index_pipeline import run_index as ref_run_index
 from groot_tpu_torch import synth
 from groot_tpu_torch.align import device_join as dj
+from groot_tpu_torch.align.batch_host import WindowTables
+from groot_tpu_torch.config import AlignCmd, Info
 from groot_tpu_torch.index.lshe import ContainmentIndex
 from groot_tpu_torch.io import bam as bamio
+from groot_tpu_torch.io.fastx import FastqRead
 from groot_tpu_torch.ops.nthash import ASCII_TO_CODE
 from groot_tpu_torch.parallel import device_index as pdi
 from groot_tpu_torch.parallel.mesh import data_devices, pad_batch_for_mesh
@@ -185,7 +187,7 @@ def indexes(tmp_path_factory):
     alleles = synth.tiny_db(str(tmp / "msa"))
     run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
                    index_dir=str(tmp / "port")), str(tmp / "msa"), "cpu")
-    ref_run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+    ref_run_index(RefInfo(kmer_size=K, sketch_size=S, window_size=W,
                        index_dir=str(tmp / "ref")), str(tmp / "msa"))
     return tmp, alleles
 
@@ -193,11 +195,12 @@ def indexes(tmp_path_factory):
 def test_device_index_build_matches_jax(indexes):
     tmp, _alleles = indexes
     out = {}
-    for name, Index in (("port", ContainmentIndex), ("ref", RefIndex)):
-        info = Info.load(str(tmp / name / "groot.gg"))
+    for name, Index, cfg in (("port", ContainmentIndex, Info),
+                             ("ref", RefIndex, RefInfo)):
+        info = cfg.load(str(tmp / name / "groot.gg"))
         out[name] = (info, Index.load(str(tmp / name / "groot.lshe")))
     info, index = out["port"]
-    got = pdi.DeviceIndex.build(index, info.store, K, 0.97)
+    got = pdi.DeviceIndex.build(index, info.store, K, 0.97, device="cpu")
     ref = rdi.DeviceIndex.build(out["ref"][1], out["ref"][0].store, K, 0.97)
     want = pdi.device_index_from_jax(
         {f: (np.asarray(v) if hasattr(v, "shape") else v)
@@ -266,15 +269,17 @@ def _align(pkg, index_dir, fq, bam):
     paths)."""
     if pkg == "port":
         Index, bam_mod, pipe, kw = ContainmentIndex, bamio, align_pipeline, {"device": "cpu"}
+        cfg, cmd = Info, AlignCmd
     else:
         Index, bam_mod, pipe, kw = RefIndex, ref_bamio, ref_pipeline, {}
+        cfg, cmd = RefInfo, RefAlignCmd
     os.environ["GROOT_ENGINE"] = "device"
     try:
-        info = Info.load(os.path.join(index_dir, "groot.gg"))
+        info = cfg.load(os.path.join(index_dir, "groot.gg"))
         info.attach_db(Index.load(os.path.join(index_dir, "groot.lshe")))
         info.index_dir = index_dir
         info.containment_threshold = 0.99
-        info.sketch = AlignCmd(min_kmer_coverage=0.5)
+        info.sketch = cmd(min_kmer_coverage=0.5)
         with open(bam, "wb") as fh:
             writer = bam_mod.BamWriter(fh, bam_mod.build_references(info.store))
             stats = pipe.run_align(info, [fq], bam_writer=writer,

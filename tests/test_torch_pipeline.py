@@ -5,7 +5,8 @@ mixed length (60-200 bp, reverse complements, Ns, reads over the device's
 192 bp limit and reads of k or k+1 bases for the host residue) each port
 engine equals the reference engine: stats, node weights, order-canonical
 BAM records, pruned paths and report rows. The CLI runs index -> align ->
-report on the CPU, and the package never imports JAX."""
+report on the CPU, the package never imports JAX or groot_tpu, and each
+package reads the other's groot.gg."""
 
 import os
 import subprocess
@@ -15,13 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from groot_tpu.config import AlignCmd, Info
+from groot_tpu.config import AlignCmd as RefAlignCmd
+from groot_tpu.config import Info as RefInfo
 from groot_tpu.index.lshe import ContainmentIndex as RefIndex
 from groot_tpu.io import bam as ref_bamio
 from groot_tpu.pipeline import align_pipeline as ref_pipeline
 from groot_tpu.pipeline.index_pipeline import run_index as ref_run_index
 from groot_tpu.report import pileup as ref_pileup
 from groot_tpu_torch import cli, synth
+from groot_tpu_torch.config import AlignCmd, Info
 from groot_tpu_torch.index.lshe import ContainmentIndex
 from groot_tpu_torch.io import bam as bamio
 from groot_tpu_torch.pipeline import align_pipeline
@@ -41,7 +44,7 @@ def data(tmp_path_factory):
     alleles = synth.tiny_db(msa)
     run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
                    index_dir=str(tmp / "port")), msa, "cpu")
-    ref_run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+    ref_run_index(RefInfo(kmer_size=K, sketch_size=S, window_size=W,
                        index_dir=str(tmp / "ref")), msa)
     reads, _which, _starts = synth.sample_reads(
         np.random.default_rng(5), alleles, 200, lengths=LENGTHS,
@@ -65,17 +68,17 @@ def _align(pkg, index_dir, fq, bam, engine):
     BAM keys, pruned paths, report rows)."""
     if pkg == "port":
         Index, bam_mod, pipe, rep = ContainmentIndex, bamio, align_pipeline, pileup
-        kw = {"device": "cpu"}
+        cfg, cmd, kw = Info, AlignCmd, {"device": "cpu"}
     else:
         Index, bam_mod, pipe, rep = RefIndex, ref_bamio, ref_pipeline, ref_pileup
-        kw = {}
+        cfg, cmd, kw = RefInfo, RefAlignCmd, {}
     os.environ["GROOT_ENGINE"] = engine
     try:
-        info = Info.load(os.path.join(index_dir, "groot.gg"))
+        info = cfg.load(os.path.join(index_dir, "groot.gg"))
         info.attach_db(Index.load(os.path.join(index_dir, "groot.lshe")))
         info.index_dir = index_dir
         info.containment_threshold = 0.99
-        info.sketch = AlignCmd(min_kmer_coverage=MIN_COV)
+        info.sketch = cmd(min_kmer_coverage=MIN_COV)
         with open(bam, "wb") as fh:
             writer = bam_mod.BamWriter(fh, bam_mod.build_references(info.store))
             stats = pipe.run_align(info, [fq], bam_writer=writer,
@@ -100,7 +103,7 @@ def test_run_index_matches_reference(data, route, tmp_path, monkeypatch):
     tmp, _fq = data
     port_dir = tmp / "port"
     if route == "numpy":
-        from groot_tpu.io import native
+        from groot_tpu_torch.io import native
 
         monkeypatch.setattr(native, "window_sketch", lambda *a: None)
         port_dir = tmp_path / "np"
@@ -116,14 +119,15 @@ def test_run_index_matches_reference(data, route, tmp_path, monkeypatch):
     for Kb, tab in ref._tables.items():
         for name in ("sorted_sigs", "idx"):
             np.testing.assert_array_equal(port._tables[Kb][name], tab[name])
-    p_info = Info.load(str(port_dir / "groot.gg"))
-    r_info = Info.load(str(tmp / "ref" / "groot.gg"))
+    p_info = RefInfo.load(str(port_dir / "groot.gg"))
+    r_info = RefInfo.load(str(tmp / "ref" / "groot.gg"))
     assert sorted(p_info.store) == sorted(r_info.store)
 
 
 @pytest.mark.parametrize(
     "port_engine,ref_engine",
-    [("device", "device"), ("hash", "hash"), ("host", "hash")],
+    [("device", "device"), ("hash", "hash"), ("host", "hash"),
+     ("cascade", "cascade")],
 )
 def test_engine_matches_reference(data, port_engine, ref_engine):
     tmp, fq = data
@@ -169,34 +173,26 @@ def test_cli_device_cuda_raises_without_gpu(data, tmp_path):
                   "-g", str(tmp_path / "g"), "--device", "cuda"])
 
 
-@pytest.mark.parametrize("engine,exc", [("cascade", NotImplementedError),
-                                        ("bogus", ValueError)])
+@pytest.mark.parametrize("engine,exc", [("bogus", ValueError)])
 def test_unported_engines_raise(engine, exc, monkeypatch):
     monkeypatch.setenv("GROOT_ENGINE", engine)
     with pytest.raises(exc):
         align_pipeline.select_engine()
 
 
-ALLOWED = {
-    "groot_tpu", "groot_tpu.version", "groot_tpu.config", "groot_tpu.hostmem",
-    "groot_tpu.graph", "groot_tpu.graph.grootgraph", "groot_tpu.io",
-    "groot_tpu.io.gfa", "groot_tpu.io.msa2gfa", "groot_tpu.io.fastx",
-    "groot_tpu.io.native", "groot_tpu.align", "groot_tpu.align.batch_host",
-    "groot_tpu.get",
-}
-
 _NO_JAX = r"""
 import importlib, pkgutil, sys
-for m in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
+BLOCKED = ("jax", "jaxlib", "groot_tpu")
+for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[m]
 
-class BlockJax:
+class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
         return None
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, Block())
 import groot_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     groot_tpu_torch.__path__, "groot_tpu_torch.")]
@@ -209,19 +205,60 @@ try:
 except ValueError:
     pass
 cli.build_parser().format_help()
+# a groot.gg written by groot_tpu
+from groot_tpu_torch.config import Info
+from groot_tpu_torch.graph.grootgraph import GrootGraph
+info = Info.load(sys.argv[1])
+assert info.store and all(isinstance(g, GrootGraph) for g in info.store.values())
 print("MODULES", len(names))
-print("GROOT_TPU", " ".join(sorted(
-    m for m in sys.modules if m.split(".")[0] == "groot_tpu")))
+print("GRAPHS", len(info.store))
+print("BLOCKED", " ".join(sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)) or "-")
 """
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(data):
+    """With jax and groot_tpu blocked, every port module imports, the CLI
+    builds its help, and a groot_tpu-written groot.gg loads."""
+    tmp, _fq = data
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run(
-        [sys.executable, "-c", _NO_JAX], cwd=repo, capture_output=True,
-        text=True, timeout=120,
+        [sys.executable, "-c", _NO_JAX, str(tmp / "ref" / "groot.gg")],
+        cwd=repo, capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
     lines = dict(l.split(" ", 1) for l in res.stdout.splitlines() if " " in l)
-    assert int(lines["MODULES"]) >= 22
-    assert set(lines["GROOT_TPU"].split()) <= ALLOWED
+    assert int(lines["MODULES"]) >= 34
+    assert int(lines["GRAPHS"]) > 0
+    assert lines["BLOCKED"] == "-"
+
+
+def _store_state(store):
+    """A graph store as plain data (types dropped), for comparing stores
+    across the two packages."""
+    out = {}
+    for gid, g in store.items():
+        d = dict(vars(g))
+        d["sorted_nodes"] = [dict(vars(n)) for n in g.sorted_nodes]
+        out[gid] = d
+    return out
+
+
+def test_reference_loads_port_groot_gg(data):
+    """groot_tpu's Info.load reads a port-written groot.gg (the reference's
+    class names) with a store equal to its own index's; the port reads it
+    back too."""
+    from groot_tpu.graph.grootgraph import GrootGraph as RefGraph
+
+    from groot_tpu_torch.graph.grootgraph import GrootGraph
+
+    tmp, _fq = data
+    port = RefInfo.load(str(tmp / "port" / "groot.gg"))
+    ref = RefInfo.load(str(tmp / "ref" / "groot.gg"))
+    assert all(type(g) is RefGraph for g in port.store.values())
+    assert type(port.sketch) is RefAlignCmd
+    assert _store_state(port.store) == _store_state(ref.store)
+    assert (port.kmer_size, port.sketch_size, port.window_size) == (K, S, W)
+    back = Info.load(str(tmp / "port" / "groot.gg"))
+    assert all(type(g) is GrootGraph for g in back.store.values())
+    assert _store_state(back.store) == _store_state(ref.store)
