@@ -245,10 +245,11 @@ def sketch_parity(seed: int, dev) -> dict:
         pms = _time_ms(lambda: nthash.khf_sketch_torch(c, v, k, s), dev, 5)
         _say(f"khf_sketch k{k} s{s} L{L} B{B}: equal to plain/native/numpy; "
              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        # bytes: codes and lengths in, the sketches out; ops: per k-mer the
-        # canonical rolling hash (~8) and s multiplicative slots (~4 each)
+        # bytes: the reads' bases (not the padding) and lengths in, the
+        # sketches out; ops: per k-mer the canonical rolling hash (~8) and
+        # s multiplicative slots (~4 each)
         n_kmer = int(np.clip(lens.astype(np.int64) - k + 1, 0, None).sum())
-        res.append((ms, pms, _bound(codes.nbytes + lens.nbytes + B * s * 8,
+        res.append((ms, pms, _bound(int(lens.sum()) + lens.nbytes + B * s * 8,
                                     n_kmer * (8 + 4 * s))))
     ms, pms, bound = res[0]  # the main path's shape
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
@@ -348,11 +349,11 @@ def window_parity(work: str, dev) -> dict:
     ms = _time_ms(lambda: window.window_run_starts(c, v, K, S, W), dev)
     pms = _time_ms(lambda: window.window_run_starts_torch(c, v, K, S, W), dev, 5)
     nw = int((lens - W + 1).clip(min=0).sum())
-    # bytes: path codes and lengths in, the run starts (row, column, u64
-    # sketch) out; ops: per k-mer the rolling hash and S slots, per window
-    # and slot ~2 for the sliding minimum
+    # bytes: the rows' bases (not the padding) and lengths in, the run
+    # starts (row, column, u64 sketch) out; ops: per k-mer the rolling hash
+    # and S slots, per window and slot ~2 for the sliding minimum
     n_kmer = int(np.clip(lens.astype(np.int64) - K + 1, 0, None).sum())
-    bound = _bound(codes.nbytes + lens.nbytes + len(got_np[0]) * 16,
+    bound = _bound(int(lens.sum()) + lens.nbytes + len(got_np[0]) * 16,
                    n_kmer * (8 + 4 * S) + nw * S * 2)
     _say(f"window_sketch on {len(lens)} path rows (<= {codes.shape[1]} bp, "
          f"{nw} windows, {len(got_np[0])} run starts): equal to plain/native; "
@@ -414,22 +415,28 @@ def phase_a_parity(work: str, fq: str, dev) -> dict:
     _say(f"seed_scan sharded over [{dev}, {dev}]: equal to the unsharded scan "
          f"on {rows_t.shape[1]} rows")
     hits = int(((out & 0xFF) < 255).sum())
-    # read_hash: codes, lengths and power tables in, four hash arrays out;
-    # ~8 ops a base (prefix hashes of both strands, anchors)
+    # read_hash: the reads' bases, lengths and power tables in, the four
+    # hash arrays out at each read's real positions (not the padding to
+    # L and WPH); ~8 ops a base (prefix hashes of both strands, anchors)
+    ln = lens.long()
+    n_hash = 2 * int((ln + 1).sum()) + 2 * int((ln - K + 1).clamp(min=0).sum())
     rh = {"max_abs_err": rh_err,
           "ms": _time_ms(lambda: dj.read_hashes(*args), dev),
           "plain_ms": _time_ms(lambda: dj.read_hashes_torch(*args), dev, 5),
-          **_bound(_nbytes(codes, lens, rpow32, rinv32, *PH),
-                   8 * int(lens.sum()))}
-    # seed_scan: the hash arrays and rows in, one word a row out, and at
-    # least one anchor chain (n_offs + 1 table words) per row and strand
+          **_bound(int(ln.sum()) + _nbytes(lens) + 8 * int(ln.max()) + 4 * n_hash,
+                   8 * int(ln.sum()))}
+    # seed_scan: the rows in, one word a row out, and at least one anchor
+    # chain (n_offs + 1 words) per row and strand from the path table and
+    # per read of the rows and strand from its anchor hashes
     n_rows = rows_t.shape[1]
     chain = 2 * n_rows * (sx["n_offs"] + 1)
+    n_read = int(torch.unique(rows_t[0]).numel())
     ss = {"max_abs_err": ss_err,
           "ms": _time_ms(lambda: dj.seed_scan(al._dev, *PH, *rows_t, **kw), dev),
           "plain_ms": _time_ms(
               lambda: dj.seed_scan_torch(al._dev, *PH, *rows_t, **kw), dev, 5),
-          **_bound(_nbytes(*PH, rows_t, out) + 4 * chain, chain)}
+          **_bound(_nbytes(rows_t, out) + 4 * chain
+                   + 4 * 2 * n_read * (sx["n_offs"] + 1), chain)}
     _say(f"phase A on one batch: {len(codes)} mapped reads, "
          f"{rows_t.shape[1]} rows ({hits} stage-1 hits), D1 {sx['D1']}; "
          f"read_hash kernel {rh['ms']:.4f} ms plain {rh['plain_ms']:.4f} ms; "
@@ -502,6 +509,31 @@ def _query_args(di, codes, lens, t, dev):
         args = (q, kc, di.sketches, di.sorted_sigs, di.band_idx)
         kw.update(K=di.band_k, M=MAX_PER_BAND)
     return args, kw, full
+
+
+def _n_candidates(q, kc, _sketches, sorted_sigs, band_idx, *, K, M, qmax=None,
+                  **_kw) -> int:
+    """The candidate windows the LSH query must score for a batch: per
+    read, at most M table entries of each band whose signature equals the
+    read's, counted once per read in the banded mode (as the query dedups
+    them)."""
+    from groot_tpu_torch.index.lshe import M32, mix_bands_torch
+
+    sigs = mix_bands_torch(q, K)
+    take = torch.arange(M, device=q.device)
+    parts = []
+    for b in range(sorted_sigs.shape[0]):
+        row = sorted_sigs[b].long() & M32
+        lo = torch.searchsorted(row, sigs[:, b].contiguous(), side="left")
+        hi = torch.searchsorted(row, sigs[:, b].contiguous(), side="right")
+        pos = lo[:, None] + take[None, :]
+        parts.append(torch.where(pos < hi[:, None],
+                                 band_idx[b][pos.clamp(max=row.numel() - 1)], -1))
+    cands = torch.cat(parts, dim=1)
+    if qmax is None:
+        cands = torch.sort(cands, dim=1).values
+        cands[:, 1:][cands[:, 1:] == cands[:, :-1]] = -1
+    return int(((cands >= 0) & (kc[:, None] > 0)).sum())
 
 
 def data_plane(work: str, fq: str, dev):
@@ -603,28 +635,31 @@ def data_plane(work: str, fq: str, dev):
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
         w_err = float((got[0] - want[0]).abs().max())
         # lsh_query: sketches and k-mer counts in, ids and containments
-        # out, each read's candidate sketch rows read once and two binary
-        # searches of the signature table; ops: the band mix, the searches
-        # and one compare a candidate slot
+        # out, the sketch row of each real candidate (a slot the band
+        # lookup fills, not the padding of the C slots) read once and two
+        # binary searches of the signature table a band; ops: the band mix,
+        # the searches and one compare a slot of a real candidate
         B, Cq = win.shape
-        n_sig = int(qargs[3].shape[-1])
-        search = 2 * max(n_sig, 2).bit_length()
+        n_band, n_sig = int(qargs[3].shape[0]), int(qargs[3].shape[-1])
+        search = 2 * n_band * max(n_sig, 2).bit_length()
+        n_cand = _n_candidates(*qargs, **qkw)
         q_bound = _bound(_nbytes(qargs[0], qargs[1], win, con)
-                         + B * (Cq * S + search) * 8,
-                         B * (8 * S + search + Cq * S))
-        # weight_scatter: kept pairs' node rows (id and coefficient) and the
-        # hit table in, the tallies out; ops: a multiply-add and an atomic
-        # a node slot. Its library counterpart: index_add_ of the same
-        # contributions into the node weights.
+                         + (B * search + n_cand * S) * 8,
+                         B * (8 * S + search) + n_cand * S)
+        # weight_scatter: the hit table and k-mer counts in, each kept
+        # pair's live node slots (id and coefficient; not the padding of
+        # the Cn slots), flag and graph, the tallies out; ops: a
+        # multiply-add and an atomic a live slot. Its library counterpart:
+        # index_add_ of the same contributions into the node weights.
         kept = win >= 0
         n_kept = int(kept.sum())
-        Cn = di.win_nodes.shape[1]
-        w_bound = _bound(_nbytes(win, kc, got[0], got[1], got[2]) + n_kept * (Cn * 8 + 5),
-                         2 * n_kept * Cn)
         r_k, c_k = torch.nonzero(kept, as_tuple=True)
         nodes = di.win_nodes[win[r_k, c_k].long()]
         vals = di.win_coeff[win[r_k, c_k].long()] * kc[r_k].float()[:, None]
         live = nodes >= 0
+        n_live = int(live.sum())
+        w_bound = _bound(_nbytes(win, kc, got[0], got[1], got[2]) + n_kept * 5
+                         + n_live * 8, 2 * n_live)
         idx, val = nodes[live].long(), vals[live]
         acc_w = torch.zeros(di.num_nodes, dtype=torch.float32, device=dev)
         m = {
@@ -863,7 +898,9 @@ def cascade_phase(work: str, fq: str, dev, hash_run) -> dict:
 
     _build.reset_counts()
     res, bam, rows, dt = align_and_report(work, fq, "cascade", dev.type)
-    launches = _launches(["pair_cascade"])
+    # the batch sketch and the cascade both launch on this path; the
+    # summary line keeps the device run's sketch count
+    launches = {"pair_cascade": _launches(["khf_sketch", "pair_cascade"])["pair_cascade"]}
     st = res.stats
     _say(f"cascade run: {st.received} reads, {st.mapped} mapped, "
          f"{st.alignment_count} alignments in {dt:.2f}s = "
@@ -879,7 +916,8 @@ def match_bits_probe(work: str, fq: str, dev) -> None:
     torch conv1d: no hand kernel) on the card for the graph with the most
     reads in the first batch, timed with its host packing and copies, and
     its bound: path one-hot, read kernels and match bits moved once; one
-    multiply-add per (kernel, path row, offset, base, channel)."""
+    multiply-add per (kernel, path row, offset, base, channel), over the
+    reads' real bases and the rows' real positions."""
     from groot_tpu_torch.align.aligner import GraphAligner
     from groot_tpu_torch.align.batch_host import WindowTables
     from groot_tpu_torch.config import Info
@@ -904,13 +942,12 @@ def match_bits_probe(work: str, fq: str, dev) -> None:
     bits = ga._batch_match_bits(gp, reads)
     ms = _time_ms(lambda: ga._batch_match_bits(gp, reads), dev, 5)
     R, _six, P, W32 = bits.shape
-    Lr_b = -(-max(max(len(r.seq) for r in reads), 32) // 32) * 32
-    Lp = gp.packed.codes.shape[1] + Lr_b
-    W = Lp - Lr_b + 1
-    bound = _bound(4 * (P * Lp * 5 + 6 * R * Lr_b * 5 + 6 * R * P * W32),
-                   2 * 6 * R * P * W * Lr_b * 5)
+    n_read = sum(len(r.seq) for r in reads)    # real bases, not Lr's padding
+    n_path = int(gp.lengths.sum())             # real path positions
+    bound = _bound(4 * (n_path * 5 + 6 * n_read * 5 + 6 * R * P * W32),
+                   2 * 6 * n_read * 5 * n_path)
     _say(f"_match_bits (host engine, torch conv1d) on graph {gid}: {R} reads, "
-         f"{P} path rows of <= {Lp - Lr_b} bp, Lr={Lr_b}: {ms:.4f} ms with "
+         f"{P} path rows of <= {int(gp.lengths.max())} bp: {ms:.4f} ms with "
          f"packing and copies; bound {bound['bound_ms']:.6f} ms "
          f"({bound['bound_by']})")
 
@@ -954,41 +991,108 @@ def cascade_parity(work: str, fq: str, dev) -> dict:
     _check(np.array_equal(g_np, p_np), "pair_cascade kernel != plain (pad rows)")
     ms = _time_ms(lambda: dc.pair_cascade(*args), dev)
     pms = _time_ms(lambda: dc.pair_cascade_torch(*args), dev, 5)
+    bound = _cascade_bound(stack, arrays, g_np[:n])
+    C, Lr = arrays[1].shape
+    Pb, Lb, _Nb = stack.sig
+    st = np.bincount(g_np[:n, 3], minlength=5)[1:]
+    _say(f"pair_cascade on the largest chunk of batch 1 ({len(chunks)} chunks; "
+         f"C={C} combos, Lr={Lr}, Np={len(arrays[3])} pairs, Nq={len(arrays[8])} "
+         f"probes, Pb={Pb}, Lb={Lb}; {int(g_np[:n, 0].sum())} found, stages 1-4 "
+         f"{st.tolist()}): equal to plain on every row; kernel {ms:.4f} ms, "
+         f"plain {pms:.4f} ms, bound {bound['bound_ms']:.6f} ms "
+         f"({bound['bound_by']}: {bound['bytes']} bytes, {bound['ops']} ops)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": None,
+            **bound}
 
-    # bytes: the reads, pairs and probes in, the packed rows out, the node
-    # rows of every seed and probe, and the path rows of the graphs the
-    # chunk touches; ops: one compare for each stage-1 position of the
-    # forward strand, the fewest the stage-1 scan can take
+
+def _union_len(keys, starts, ends) -> int:
+    """Total length of the union of the half-open intervals [start, end)
+    of each key."""
+    keep = ends > starts
+    keys, starts, ends = keys[keep], starts[keep], ends[keep]
+    if not len(keys):
+        return 0
+    span = int(ends.max()) + 1
+    s = keys * span + starts
+    e = keys * span + ends
+    o = np.argsort(s, kind="stable")
+    s, e = s[o], e[o]
+    reach = np.concatenate(([s[0]], np.maximum.accumulate(e)[:-1]))
+    return int(np.clip(e - np.maximum(s, reach), 0, None).sum())
+
+
+def _cascade_bound(stack, arrays, rows) -> dict:
+    """The least work of one pair_cascade call, counted from what its
+    inputs and its answer `rows` (the real pairs' packed rows) need:
+    - the reads' real bases, each combo's slot and length, each real
+      pair's five words, its packed row out;
+    - the seed node rows of the pairs (their real path slots and the node
+      length) and the path length and terminal flag of each path row they
+      place;
+    - the path bytes of the forward stage-1 scan: in each real path row of
+      the pair, every position from the clamped base up to the last one
+      the scan may try (for a pair found there, no further than its
+      winning offset), and the read's length from the winning position in
+      each winning row;
+    - for a pair not found at forward stage 1, the probes that must be
+      tried (all of them, or the winner alone for a forward stage-2 hit)
+      and their node rows.
+    Positions and probes of the later stages and of the reverse strand are
+    left out, so this is below what the function needs. Ops: one compare a
+    scanned position and one a base of each winning row."""
+    from groot_tpu_torch.align import device_cascade as dc
+
     (g_idx, read_codes, read_len, pair_combo, _valid, seed_idx, seed_off,
      span_lim, probe_pair, probe_node, _rank) = arrays
+    n = len(rows)
     Pb, Lb, _Nb = stack.sig
-    C, Lr = read_codes.shape
-    Np, Nq = len(pair_combo), len(probe_pair)
+    Lr = read_codes.shape[1]
     hosts = stack.host
-    npos = np.stack([h.node_pos for h in hosts])
-    nlen = np.stack([h.node_len for h in hosts])
+    npos = np.stack([h.node_pos for h in hosts]).astype(np.int64)
+    nlen = np.stack([h.node_len for h in hosts]).astype(np.int64)
     plen = np.stack([h.path_len for h in hosts]).astype(np.int64)
     term = np.stack([h.terminal_free for h in hosts])
     W = Lb - Lr + 1
     Wp = -(-W // dc.DB) * dc.DB
-    g = g_idx[pair_combo]
-    ss = npos[g, seed_idx].astype(np.int64)
-    b1 = np.minimum(span_lim, nlen[g, seed_idx] - 1 - seed_off).astype(np.int64)
-    base = ss + seed_off[:, None]
+    pc = pair_combo[:n]
+    g = g_idx[pc].astype(np.int64)
+    rl = read_len[pc].astype(np.int64)
+    seed, off = seed_idx[:n].astype(np.int64), seed_off[:n].astype(np.int64)
+    ss = npos[g, seed]                                       # [n, Pb]
+    live = ss >= 0
+    b1 = np.minimum(span_lim[:n], nlen[g, seed] - 1 - off)
+    base = ss + off[:, None]
+    lo = np.clip(base, 0, W - 1)
     hi = np.minimum(np.minimum(base + b1[:, None], Wp - 1), plen[g] - 1)
-    hi = np.where(term[g], hi, np.minimum(hi, plen[g] - read_len[pair_combo][:, None]))
-    n_pos = int(np.where(ss >= 0, np.clip(hi - np.clip(base, 0, W - 1) + 1, 0, None), 0).sum())
-    nbytes = (sum(a.nbytes for a in arrays) + Np * (8 + Pb) * 4
-              + (Np + Nq) * (Pb + 1) * 4 + len(np.unique(g_idx)) * Pb * Lb)
-    bound = _bound(nbytes, n_pos)
-    st = np.bincount(g_np[:n, 3], minlength=5)[1:]
-    _say(f"pair_cascade on the largest chunk of batch 1 ({len(chunks)} chunks; "
-         f"C={C} combos, Lr={Lr}, Np={Np} pairs, Nq={Nq} probes, Pb={Pb}, "
-         f"Lb={Lb}; {int(g_np[:n, 0].sum())} found, stages 1-4 {st.tolist()}): "
-         f"equal to plain on every row; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-         f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": None,
-            **bound}
+    hi = np.where(term[g], hi, np.minimum(hi, plen[g] - rl[:, None]))
+    fwd1 = (rows[:, 2] == 0) & (rows[:, 3] == 1)
+    j1 = (rows[:, 5] - off)[:, None]
+    hi = np.where(fwd1[:, None], np.minimum(hi, base + j1), hi)
+    key = g[:, None] * Pb + np.arange(Pb)[None, :]
+    tried = live & (hi >= lo)
+    won = live & fwd1[:, None] & (rows[:, 8:8 + Pb] != 0)
+    x = base + j1
+    keys = np.concatenate([key[tried], key[won]])
+    path_bytes = _union_len(keys, np.concatenate([lo[tried], x[won]]),
+                            np.concatenate([hi[tried] + 1, (x + rl[:, None])[won]]))
+    n_ops = int((hi - lo + 1)[tried].sum()) + int((won * rl[:, None]).sum())
+
+    # probes: all of a pair's where forward stage 1 and 2 found nothing,
+    # the winning one for a forward stage-2 hit
+    fwd2 = (rows[:, 2] == 0) & (rows[:, 3] == 2)
+    real_q = probe_pair < n
+    q_pair = probe_pair[real_q].astype(np.int64)
+    q_node = probe_node[real_q].astype(np.int64)
+    need_q = ~fwd1[q_pair] & (~fwd2[q_pair] | (q_node == rows[q_pair, 4]))
+    nodes = np.unique(np.concatenate([
+        g * (1 << 32) + seed, g[q_pair[need_q]] * (1 << 32) + q_node[need_q],
+    ]))
+    node_g, node_i = nodes >> 32, nodes & 0xFFFFFFFF
+    node_bytes = 4 * (int((npos[node_g, node_i] >= 0).sum()) + len(nodes))
+    n_rows = len(np.unique(key[live]))
+    nbytes = (int(read_len.sum()) + 8 * len(g_idx) + n * (17 + (8 + Pb) * 4)
+              + 12 * int(need_q.sum()) + node_bytes + 5 * n_rows + path_bytes)
+    return _bound(nbytes, n_ops)
 
 
 def _haplotype(work: str, out: str, device: str):
@@ -1055,12 +1159,14 @@ def haplotype_phase(work: str, dev):
     ms = _time_ms(lambda: em.em_batched(*args, mi, ma), dev)
     pms = _time_ms(lambda: em.run_em_batched_torch(*args, mi, ma), dev, 5)
     G, E, Pn = arrays[0].shape
-    # bytes: membership, counts and path counts in, iterations and alphas
-    # out; ops: ~4 a (ec, path) cell of each graph per round it ran
+    # bytes: each graph's real (ec, path) membership cells, ec counts and
+    # path count in, its iterations and its paths' alphas out (the padding
+    # of the [G, E, P] batch is left out); ops: ~4 a real cell per round
     e_real = (arrays[0].sum(axis=2) > 0).sum(axis=1).astype(np.int64)
-    ops = 4 * int((it.cpu().numpy().astype(np.int64) * e_real
-                   * arrays[2].astype(np.int64)).sum())
-    bound = _bound(sum(x.nbytes for x in arrays) + G * 4 + G * Pn * 4, ops)
+    p_real = arrays[2].astype(np.int64)
+    ops = 4 * int((it.cpu().numpy().astype(np.int64) * e_real * p_real).sum())
+    bound = _bound(4 * (int((e_real * p_real).sum()) + int(e_real.sum()) + G
+                        + G + int(p_real.sum())), ops)
     _say(f"haplotype --device {dev.type}: {len(found)} alleles called in "
          f"{dt:.2f}s; --device cpu the same in {cpu_dt:.2f}s")
     _say(f"em_batched on {G} graphs (E <= {E}, P <= {Pn}, iterations "

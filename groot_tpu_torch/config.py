@@ -14,14 +14,17 @@ exactly those names to this package's classes, without importing
 groot_tpu, and refuses any other `groot_tpu.*` name. `Info.dump` writes the
 same names: it pickles with protocol 3, whose GLOBAL opcode is the text
 `c<module>\\n<name>\\n` with no length prefix and whose stream has no frame
-lengths, so the module strings are rewritten in the byte stream.
+lengths, so the module strings of those opcodes are rewritten in place.
 """
 
 from __future__ import annotations
 
+import copyreg
 import gzip
+import io
 import os
 import pickle
+import pickletools
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -118,18 +121,51 @@ def _global(module: str, name: str) -> bytes:
     return b"c" + module.encode() + b"\n" + name.encode() + b"\n"
 
 
+class _CommandsFirst(pickle.Pickler):
+    """Pickles an Info with its command settings ahead of its store, so
+    every class this package names in the stream is named within its first
+    graph."""
+
+    def reducer_override(self, obj):
+        if type(obj) is not Info:
+            return NotImplemented
+        state = dict(vars(obj))
+        front = {k: state.pop(k) for k in ("sketch", "haplotype")}
+        return copyreg.__newobj__, (Info,), {**front, **state}
+
+
 def dumps_ref_names(obj) -> bytes:
     """Pickle `obj` (protocol 3) with every class of REF_CLASSES named as
-    the reference names it."""
-    raw = pickle.dumps(obj, protocol=3)
-    for (module, name), cls in REF_CLASSES.items():
-        raw = raw.replace(_global(cls.__module__, name), _global(module, name))
-    own = b"c" + __name__.split(".")[0].encode() + b"."
-    if own in raw:
-        raise pickle.PicklingError(
-            "groot.gg would name a class the reference cannot load"
-        )
-    return raw
+    the reference names it. Only GLOBAL opcodes are rewritten, found by
+    walking the opcode stream up to the last place that could name a class
+    of this package, so pickled data holding the same bytes is left
+    alone."""
+    buf = io.BytesIO()
+    _CommandsFirst(buf, protocol=3).dump(obj)
+    raw = buf.getvalue()
+    ref_name = {(cls.__module__, name): module
+                for (module, name), cls in REF_CLASSES.items()}
+    own = __name__.split(".")[0]
+    stop = raw.rfind(b"c" + own.encode() + b".")
+    parts, last = [], 0
+    for op, arg, pos in pickletools.genops(raw) if stop >= 0 else ():
+        if pos > stop:
+            break
+        if op.code != "c":  # GLOBAL: "c<module>\n<name>\n"
+            continue
+        module, name = arg.split(" ", 1)
+        ref = ref_name.get((module, name))
+        if ref is None:
+            if module.split(".")[0] == own:
+                raise pickle.PicklingError(
+                    f"groot.gg would name {module}.{name}, which the "
+                    "reference cannot load"
+                )
+            continue
+        parts += [raw[last:pos], _global(ref, name)]
+        last = pos + len(_global(module, name))
+    parts.append(raw[last:])
+    return b"".join(parts)
 
 
 class _RefUnpickler(pickle.Unpickler):

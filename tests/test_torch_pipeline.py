@@ -262,3 +262,26 @@ def test_reference_loads_port_groot_gg(data):
     back = Info.load(str(tmp / "port" / "groot.gg"))
     assert all(type(g) is GrootGraph for g in back.store.values())
     assert _store_state(back.store) == _store_state(ref.store)
+
+
+def test_groot_gg_rewrites_only_class_names(data, tmp_path):
+    """The port's groot.gg writer renames classes, not data: a string that
+    spells a class of either package comes back as it was in both
+    packages; a class of the port with no reference name is refused."""
+    import pickle
+
+    from groot_tpu_torch.io.fastx import FastqRead
+
+    tmp, _fq = data
+    info = Info.load(str(tmp / "port" / "groot.gg"))
+    text = "cgroot_tpu_torch.config\nInfo\n|cgroot_tpu.config\nInfo\n"
+    info.index_dir = text
+    path = str(tmp_path / "groot.gg")
+    info.dump(path)
+    for load in (Info.load, RefInfo.load):
+        back = load(path)
+        assert back.index_dir == text
+        assert back.kmer_size == K and len(back.store) == len(info.store)
+    info.index_dir = FastqRead(id=b"@r", seq=b"ACGT", qual=b"IIII")
+    with pytest.raises(pickle.PicklingError):
+        info.dump(path)
