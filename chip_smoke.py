@@ -55,7 +55,11 @@ Phases, any failure exits non-zero:
 Every kernel must launch in the run of its command or path (4, 5, 5b, 6 or
 8), counted from 0 just before it. The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launches, errors,
-times, the least time the card could take for the same work (`bound_ms`:
+times (`ms`: CUDA events over back-to-back calls, the Python wrapper
+included; `device_ms`: the device time a launch in phase 10's traces, all
+the entry point's device functions summed; `timed_device_ms`: the same at
+the inputs `ms` is timed on, for `weight_scatter` and `pair_cascade`, else
+null), the least time the card could take for the same work (`bound_ms`:
 the larger of the bytes the function must move over 3.35 TB/s and its
 operations over 67 T op/s, the H100's non-tensor rate; `bound_by` says
 which) and, where one PyTorch call computes the same function, that call's
@@ -673,6 +677,9 @@ def data_plane(work: str, fq: str, dev):
                 "ms": _time_ms(lambda: pdi.weight_scatter(*wargs), dev),
                 "plain_ms": _time_ms(lambda: pdi.weight_scatter_torch(*wargs), dev, 5),
                 "library_ms": _time_ms(lambda: acc_w.index_add_(0, idx, val), dev),
+                "timed_device_ms": _device_ms(lambda: pdi.weight_scatter(*wargs),
+                                              "weight_scatter")
+                if dev.type == "cuda" else None,
                 **w_bound},
         }
         _say(f"lsh_query t={t} ({'full' if full else 'banded'}, B={len(lens)}, C="
@@ -681,7 +688,8 @@ def data_plane(work: str, fq: str, dev):
              f"{m['lsh_query']['plain_ms']:.4f} ms")
         _say(f"weight_scatter t={t} ({int((win >= 0).sum())} kept pairs, Cn="
              f"{di.win_nodes.shape[1]}): equal to plain (node weights rtol 1e-5, "
-             f"max |d| {w_err:.3g}); kernel {m['weight_scatter']['ms']:.4f} ms, "
+             f"max |d| {w_err:.3g}); kernel {m['weight_scatter']['ms']:.4f} ms "
+             f"(device {m['weight_scatter']['timed_device_ms']} ms), "
              f"plain {m['weight_scatter']['plain_ms']:.4f} ms, index_add_ "
              f"{m['weight_scatter']['library_ms']:.4f} ms")
         for name in m:
@@ -773,10 +781,45 @@ KERNEL_FUNCS = {
                       "window_compact_kernel"),
     "em_batched": ("em_batched_kernel",),
     "lsh_query": ("lsh_query_kernel",),
-    "weight_scatter": ("weight_count_kernel", "weight_scan_kernel",
-                       "weight_scatter_kernel"),
+    "weight_scatter": ("weight_count_kernel", "weight_pairs_kernel"),
     "pair_cascade": ("pair_cascade_kernel",),
 }
+
+
+def _kernel_times(dev_events) -> dict:
+    """{kernel: (launches, device us)} from a trace's device events: the
+    device time of all the entry point's device functions, its launches
+    counted by its first one (every call of the entry point runs it)."""
+    per_kernel = {}
+    for e in dev_events:
+        for name, funcs in KERNEL_FUNCS.items():
+            hit = [f for f in funcs if f in e.name]
+            if hit:
+                n, us = per_kernel.get(name, (0, 0.0))
+                per_kernel[name] = (n + (hit[0] == funcs[0]),
+                                    us + e.time_range.elapsed_us())
+    return per_kernel
+
+
+def _device_events(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_ms(fn, name: str, iters: int = 20):
+    """Device milliseconds a call of kernel `name` (its device functions
+    summed) over `iters` calls after warm-up, from a torch.profiler trace;
+    None when the trace holds none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    n, us = _kernel_times(_device_events(prof)).get(name, (0, 0.0))
+    return us / 1e3 / n if n else None
 
 
 def _traced(fn):
@@ -790,8 +833,7 @@ def _traced(fn):
         fn()
         torch.cuda.synchronize()
         dt = time.time() - t0
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = _device_events(prof)
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     busy_us = 0.0
     if spans:
@@ -803,20 +845,16 @@ def _traced(fn):
             else:
                 cur_e = max(cur_e, b)
         busy_us += cur_e - cur_s
-    per_kernel = {}
-    for e in dev_events:
-        for name, funcs in KERNEL_FUNCS.items():
-            if any(f in e.name for f in funcs):
-                n, us = per_kernel.get(name, (0, 0.0))
-                per_kernel[name] = (n + 1, us + e.time_range.elapsed_us())
-    return dt, busy_us / 1e6, len(spans), per_kernel
+    return dt, busy_us / 1e6, len(spans), _kernel_times(dev_events)
 
 
-def traced_runs(work: str, fq: str, dev, plane_fn) -> None:
-    """index, align (device engine), haplotype and the data-plane step
-    (plane_fn) on the card once more, each under torch.profiler: the card's
-    busy share of the run's wall time and each port kernel's device time.
-    Prints "not measured" when the profiler records no device activity."""
+def traced_runs(work: str, fq: str, dev, plane_fn) -> dict:
+    """index, align (device and cascade engines), haplotype and the
+    data-plane step (plane_fn) on the card once more, each under
+    torch.profiler: the card's busy share of the run's wall time and each
+    port kernel's device time. Returns {kernel: (launches, device us)}
+    summed over the runs; prints "not measured" when the profiler records
+    no device activity."""
     runs = {
         "index": lambda: _index(work, "idx-traced", dev.type),
         "align": lambda: align_and_report(work, fq, "device", dev.type),
@@ -834,13 +872,17 @@ def traced_runs(work: str, fq: str, dev, plane_fn) -> None:
         _say(f"trace {cmd}: {dt:.2f}s under the profiler; device busy "
              f"{busy:.4f}s = {100 * busy / dt:.3f}% of the wall time over "
              f"{n_events} device events")
-        per_kernel.update(kern)
-    _say("trace: port kernels (launches, device ms):", json.dumps(
-        {k: [n, round(us / 1e3, 4)] for k, (n, us) in sorted(per_kernel.items())}))
+        for k, (n, us) in kern.items():
+            n0, us0 = per_kernel.get(k, (0, 0.0))
+            per_kernel[k] = (n0 + n, us0 + us)
+    _say("trace: port kernels (launches, device ms, device ms a launch):",
+         json.dumps({k: [n, round(us / 1e3, 4), round(us / 1e3 / max(n, 1), 6)]
+                     for k, (n, us) in sorted(per_kernel.items())}))
     if per_kernel:
         _check(set(per_kernel) == set(KERNEL_FUNCS),
                f"trace: kernels missing from the trace: "
                f"{sorted(set(KERNEL_FUNCS) - set(per_kernel))}")
+    return per_kernel
 
 
 def _bam_keys(path):
@@ -990,6 +1032,8 @@ def cascade_parity(work: str, fq: str, dev) -> dict:
     _check(err == 0.0, "pair_cascade kernel != plain")
     _check(np.array_equal(g_np, p_np), "pair_cascade kernel != plain (pad rows)")
     ms = _time_ms(lambda: dc.pair_cascade(*args), dev)
+    dms = (_device_ms(lambda: dc.pair_cascade(*args), "pair_cascade")
+           if dev.type == "cuda" else None)
     pms = _time_ms(lambda: dc.pair_cascade_torch(*args), dev, 5)
     bound = _cascade_bound(stack, arrays, g_np[:n])
     C, Lr = arrays[1].shape
@@ -998,11 +1042,11 @@ def cascade_parity(work: str, fq: str, dev) -> dict:
     _say(f"pair_cascade on the largest chunk of batch 1 ({len(chunks)} chunks; "
          f"C={C} combos, Lr={Lr}, Np={len(arrays[3])} pairs, Nq={len(arrays[8])} "
          f"probes, Pb={Pb}, Lb={Lb}; {int(g_np[:n, 0].sum())} found, stages 1-4 "
-         f"{st.tolist()}): equal to plain on every row; kernel {ms:.4f} ms, "
-         f"plain {pms:.4f} ms, bound {bound['bound_ms']:.6f} ms "
-         f"({bound['bound_by']}: {bound['bytes']} bytes, {bound['ops']} ops)")
+         f"{st.tolist()}): equal to plain on every row; kernel {ms:.4f} ms "
+         f"(device {dms} ms), plain {pms:.4f} ms, bound {bound['bound_ms']:.6f} "
+         f"ms ({bound['bound_by']}: {bound['bytes']} bytes, {bound['ops']} ops)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": None,
-            **bound}
+            "timed_device_ms": dms, **bound}
 
 
 def _union_len(keys, starts, ends) -> int:
@@ -1223,7 +1267,7 @@ def main(argv=None) -> int:
         launches.update(plane_launches)
         kernels.update(plane_kernels)
         nproc_phase(work, fq)
-        traced_runs(work, fq, dev, plane_fn)
+        traced = traced_runs(work, fq, dev, plane_fn)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1233,10 +1277,15 @@ def main(argv=None) -> int:
     rows = []
     for name, k in _build.KERNELS.items():
         m = kernels[name]
+        n, us = traced.get(name, (0, 0.0))
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            # the traced runs' device time a launch (all the entry point's
+            # device functions), and at the timed shapes where measured
+            "device_ms": us / 1e3 / n if n else None,
+            "timed_device_ms": m.get("timed_device_ms"),
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
         })

@@ -444,10 +444,14 @@ def pair_cascade(
         return pair_cascade_torch(*args, n_shuffles=n_shuffles)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if Lb % 4 or Lr % 4:  # the kernel compares four bases a word
+        raise ValueError(f"pair_cascade kernel: Lb {Lb} and Lr {Lr} must be "
+                         "multiples of 4")
     args = tuple(t.contiguous() for t in args)
     probe_ptr = torch.searchsorted(
-        args[13], torch.arange(Np + 1, dtype=torch.int32, device=dev)
-    ).to(torch.int32)
+        args[13], torch.arange(Np + 1, dtype=torch.int32, device=dev),
+        out_int32=True,
+    )
     out = torch.empty((Np, 8 + Pb), dtype=torch.int32, device=dev)
     Wp = -(-W // DB) * DB
     PAIR_CASCADE.launch(

@@ -35,7 +35,7 @@ from .mesh import pad_batch_for_mesh
 
 WEIGHT_SCATTER = Kernel(
     "weight_scatter", "groot_weight_scatter",
-    (P, I, I, P, P, I, P, P, P, I, I, I64, P, P, P, P, P, P),
+    (P, I, I, P, P, I, P, P, P, I64, P, I64, P, P, P, P),
     source="groot_tpu_torch/csrc/weight_scatter.cu",
     replaces="groot_tpu/parallel/device_index.py:188",
 )
@@ -254,31 +254,44 @@ def weight_scatter_torch(win, kc, win_nodes, win_coeff, win_multi, graph_ids,
     return node_w, graph_k, (win >= 0).any(dim=1), dropped
 
 
+def _up16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
 def weight_scatter(win, kc, win_nodes, win_coeff, win_multi, graph_ids,
                    num_nodes: int, num_graphs: int, pair_budget: int):
     """The weighting (see weight_scatter_torch). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel, or raises."""
+    plain version; a CUDA tensor launches the kernel (two device functions,
+    one allocation whose views are the four outputs), or raises; the
+    inputs must be contiguous (the DeviceIndex tables are)."""
     if win.device.type == "cpu":
         return weight_scatter_torch(win, kc, win_nodes, win_coeff, win_multi,
                                     graph_ids, num_nodes, num_graphs, pair_budget)
     if win.device.type != "cuda":
         raise ValueError(f"no kernel for device {win.device}")
     _check_weight(win, kc, win_nodes, win_coeff, win_multi, graph_ids)
-    dev = win.device
+    args = (win, kc, win_nodes, win_coeff, win_multi, graph_ids)
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("weight_scatter takes contiguous tensors")
     B, C = win.shape
-    n_tiles = max(-(-(B * C) // 1024), 1)  # kTile in csrc/weight_scatter.cu
-    args = [x.contiguous() for x in (win, kc, win_nodes, win_coeff, win_multi, graph_ids)]
-    tile_cnt = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_off = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
-    node_w = torch.empty(num_nodes, dtype=torch.float32, device=dev)
-    graph_k = torch.empty(num_graphs, dtype=torch.float32, device=dev)
-    mapped = torch.empty(B, dtype=torch.bool, device=dev)
-    dropped = torch.empty((), dtype=torch.int32, device=dev)
+    n_tiles = -(-(B * C) // 1024)  # kTile in csrc/weight_scatter.cu
+    # one allocation: the outputs the kernel zeroes (node_w, graph_k,
+    # mapped) as one region of 16-byte words, then the tile counts and
+    # dropped
+    o_gk = _up16(4 * num_nodes)
+    o_map = o_gk + _up16(4 * num_graphs)
+    o_cnt = o_map + _up16(B)
+    o_drop = o_cnt + _up16(4 * n_tiles)
+    buf = torch.empty(o_drop + 16, dtype=torch.uint8, device=win.device)
+    node_w = buf[:4 * num_nodes].view(torch.float32)
+    graph_k = buf[o_gk:o_gk + 4 * num_graphs].view(torch.float32)
+    mapped = buf[o_map:o_map + B].view(torch.bool)
+    dropped = buf[o_drop:o_drop + 4].view(torch.int32).reshape(())
     WEIGHT_SCATTER.launch(
-        dev, ptr(args[0]), B, C, ptr(args[1]), ptr(args[2]),
-        win_nodes.shape[1], ptr(args[3]), ptr(args[4]), ptr(args[5]),
-        num_nodes, num_graphs, int(pair_budget), ptr(tile_cnt),
-        ptr(tile_off), ptr(node_w), ptr(graph_k), ptr(mapped), ptr(dropped),
+        win.device, ptr(win), B, C, ptr(kc), ptr(win_nodes), win_nodes.shape[1],
+        ptr(win_coeff), ptr(win_multi), ptr(graph_ids), int(pair_budget),
+        ptr(buf), o_cnt, ptr(graph_k), ptr(mapped), ptr(buf) + o_cnt,
+        ptr(dropped),
     )
     return node_w, graph_k, mapped, dropped
 

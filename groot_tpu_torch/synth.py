@@ -152,27 +152,37 @@ def write_fastq(
 
 
 def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
-              pad_pairs=3, pad_probes=5, short=False):
+              pad_pairs=3, pad_probes=5, short=False, rev_frac=0.5, n_run=0,
+              twins=False, max_probes=5):
     """Seeded inputs of the pair cascade (groot_tpu's `_pair_cascade`, the
     port's `align.device_cascade.pair_cascade`) as numpy arrays, and the
     number of real pairs: Gs graphs of P aligned rows whose
-    segments are shared or variant nodes, reads cut from the rows (some
-    reverse complemented, with a first/last/middle base changed or an N),
-    1-3 mappings per read with 0-5 contained-node probes each, then pad
-    pairs and pad probes as the reference's packer makes them. `short`
-    makes paths long enough that reads reach past the last window."""
+    segments are shared or variant nodes, reads cut from the rows (a
+    `rev_frac` share reverse complemented, some with a first/last/middle
+    base changed or an N), 1-3 mappings per read with 0-`max_probes`
+    contained-node probes each (past 5, drawn with repeats from all the
+    graph's nodes), then pad pairs and pad probes as the reference's packer
+    makes them. `short` makes paths long enough that reads reach past the
+    last window. `n_run` puts a run of that many Ns in each graph's rows and
+    cuts half of the reads from it (every strand matches there). `twins`
+    gives some segments a twin node on the same rows at the same
+    coordinates, probed at its original's rank: a stage-2 tie that the
+    lowest probe row must win."""
     rng = np.random.default_rng(seed)
     codes = np.full((Gs, Pb, Lb), 4, np.uint8)
     plen = np.zeros((Gs, Pb), np.int32)
     term = np.zeros((Gs, Pb), bool)
     npos = np.full((Gs, Nb, Pb), -1, np.int32)
     nlen = np.zeros((Gs, Nb), np.int32)
-    segs_of = []
+    segs_of, run_at, twin_of = [], [], {}
     for g in range(Gs):
         Lg = int(rng.integers(Lb - Lr - 10, Lb - 4) if short
                  else rng.integers(Lb // 2, Lb - Lr))
         base = rng.integers(0, 4, Lg).astype(np.uint8)
         base[rng.random(Lg) < 0.01] = 4
+        if n_run:
+            run_at.append(int(rng.integers(4, Lg - n_run - 4)))
+            base[run_at[-1]: run_at[-1] + n_run] = 4
         n_seg = (Nb - 1) // 2
         cuts = np.sort(rng.choice(np.arange(4, Lg - 4), n_seg - 1, replace=False))
         bounds = list(zip([0, *cuts.tolist()], [*cuts.tolist(), Lg]))
@@ -193,6 +203,12 @@ def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
                 if v != variants[0]:
                     pos = int(rng.integers(a, b))
                     rows[r, pos] = (rows[r, pos] + 1) % 4
+            if twins and node < Nb - 1 and rng.random() < 0.5:
+                npos[g, node] = npos[g, variants[0]]
+                nlen[g, node] = b - a
+                twin_of[(g, node)] = variants[0]
+                variants.append(node)
+                node += 1
             segs.append((a, b, variants))
         segs_of.append(segs)
         for r in range(P):
@@ -208,6 +224,8 @@ def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
         r = int(rng.integers(P))
         rl = int(rng.integers(Lr - 12, Lr + 1)) if rng.random() < 0.8 else int(rng.integers(2, 12))
         s = int(rng.integers(0, max(plen[g, r] - rl // 2, 1)))
+        if n_run and rng.random() < 0.5:
+            s = run_at[g] + int(rng.integers(0, max(n_run - rl, 0) + 1))
         seq = codes[g, r, s : s + rl].copy()
         rl = len(seq)
         wild = seq == 4
@@ -219,7 +237,7 @@ def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
                 seq[i] = (seq[i] + 1) % 4
             elif kind == "N":
                 seq[int(rng.integers(rl))] = 4
-        if rng.random() < 0.5:
+        if rng.random() < rev_frac:
             seq = _RC_CODE[seq][::-1]
         read_codes[c, :rl] = seq
         read_len[c] = rl
@@ -233,9 +251,25 @@ def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
             off = max(s - a + shift, 0)
             span = int(rng.choice([-1, 0, 2, 5, 20, 60]))
             pairs.append((c, seed_node, off, span))
-            cand = sorted({v for i in near for v in segs[i][2]})
-            n_p = int(rng.integers(0, min(6, len(cand)) + 1))
-            probes.append(sorted(rng.choice(cand, n_p, replace=False).tolist()))
+            if max_probes <= 5:
+                cand = sorted({v for i in near for v in segs[i][2]})
+                n_p = int(rng.integers(0, min(max_probes + 1, len(cand)) + 1))
+                chosen = rng.choice(cand, n_p, replace=False)
+            else:
+                cand = [v for _a, _b, vs in segs for v in vs]
+                n_p = int(rng.integers(max_probes // 2, max_probes + 1))
+                chosen = rng.choice(cand, n_p, replace=True)
+            pr = sorted(chosen.tolist())
+            if twins:  # probe every chosen node's twin or original too
+                pair_of = {}
+                for (gg, t), o in twin_of.items():
+                    if gg == g:
+                        pair_of[t], pair_of[o] = o, t
+                pr = sorted(set(pr) | {pair_of[v] for v in pr if v in pair_of})
+            # a probe's rank: its place among the pair's nodes, a twin
+            # taking its original's
+            canon = sorted({twin_of.get((g, v), v) for v in pr})
+            probes.append([(v, canon.index(twin_of.get((g, v), v))) for v in pr])
     n_real = len(pairs)
     Np = n_real + pad_pairs
     pad_node = Nb - 1
@@ -248,7 +282,7 @@ def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
     for p, ((c, node, off, span), pr) in enumerate(zip(pairs, probes)):
         pair_combo[p], pair_valid[p] = c, True
         seed_idx[p], seed_off[p], span_lim[p] = node, off, span
-        for rank, nd in enumerate(pr):
+        for nd, rank in pr:
             probe_pair.append(p)
             probe_node.append(nd)
             probe_rank.append(rank)

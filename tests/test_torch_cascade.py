@@ -40,7 +40,13 @@ CASES = {
                       pad_pairs=0, pad_probes=0),
     "past-last-window": dict(seed=3, Lb=192, Lr=64, short=True),
     "no-pads": dict(seed=4, pad_pairs=0, pad_probes=0, C=30),
+    "both-strands": dict(seed=6, n_run=40),
+    "reverse-only": dict(seed=7, rev_frac=1.0),
+    "stage2-ties": dict(seed=11, twins=True, C=30),
+    "many-probes": dict(seed=9, max_probes=40),
+    "rows-256": dict(seed=10, P=200, Pb=256, Lb=192, Lr=32, C=8, Nb=24),
 }
+_RC = np.array([3, 2, 1, 0, 4], np.uint8)
 
 
 def _ref(arrays):
@@ -82,6 +88,53 @@ def test_cases_cover_the_cascade():
     arrays, _n = synth.cascade_case(**CASES["past-last-window"])
     W = arrays[0].shape[2] - arrays[6].shape[1] + 1
     assert (arrays[3] > W).any()
+
+
+def _twin_ties(arrays, out):
+    """Stage-2 winners with another probe of the pair at the same rank on a
+    node of the same rows and length (a tie the lowest probe row wins)."""
+    npos, nlen, g_idx, pair_combo = arrays[1], arrays[2], arrays[5], arrays[8]
+    probe_pair, probe_node, probe_rank = arrays[13], arrays[14], arrays[15]
+    ties = 0
+    for p in np.flatnonzero(out[:, 3] == 2):
+        g, w = g_idx[pair_combo[p]], out[p, 4]
+        qs = np.flatnonzero(probe_pair == p)
+        first = qs[probe_node[qs] == w][0]
+        ties += sum(int(probe_node[q] != w and probe_rank[q] == probe_rank[first]
+                        and np.array_equal(npos[g, probe_node[q]], npos[g, w])
+                        and nlen[g, probe_node[q]] == nlen[g, w]) for q in qs)
+    return ties
+
+
+def test_new_cases_reach_their_edges():
+    """both-strands: pairs that the forward strand finds in either read
+    orientation (so both strands match); reverse-only: every hit on the
+    reverse strand; stage2-ties: stage-2 winners with a tied twin probe;
+    many-probes: a stage-2 winner among more than 32 probes; rows-256: hits
+    over 256 path rows."""
+    def run(name, flip=False):
+        arrays, n = synth.cascade_case(**CASES[name])
+        if flip:  # every read reverse complemented
+            arrays = list(arrays)
+            codes = arrays[6].copy()
+            for c, ln in enumerate(arrays[7]):
+                codes[c, :ln] = _RC[codes[c, :ln]][::-1]
+            arrays[6] = codes
+        return arrays, _port(arrays)[:n]
+
+    _a, out = run("both-strands")
+    _a, out_rc = run("both-strands", flip=True)
+    fwd = (out[:, 0] == 1) & (out[:, 2] == 0)
+    assert (fwd & (out_rc[:, 0] == 1) & (out_rc[:, 2] == 0)).sum() > 5
+    _a, out = run("reverse-only")
+    assert out[:, 0].sum() > 3 and (out[out[:, 0] == 1, 2] == 1).all()
+    arrays, out = run("stage2-ties")
+    assert _twin_ties(arrays, out) > 0
+    arrays, out = run("many-probes")
+    cnt = np.bincount(arrays[13], minlength=len(arrays[8]))[: len(out)]
+    assert ((out[:, 3] == 2) & (out[:, 0] == 1) & (cnt > 32)).any()
+    arrays, out = run("rows-256")
+    assert arrays[0].shape[1] == 256 and out[:, 0].sum() > 0
 
 
 def _query_items(info, reads):

@@ -340,9 +340,10 @@ def test_lsh_query_kernel_matches_plain(cuda, mode):
 
 
 def _weight_inputs(seed: int, B: int = 700, C: int = 96, N: int = 3000,
-                   Cn: int = 7, num_nodes: int = 5000, num_graphs: int = 40):
+                   Cn: int = 7, num_nodes: int = 5000, num_graphs: int = 40,
+                   keep: float = 0.05):
     rng = np.random.default_rng(seed)
-    win = np.where(rng.random((B, C)) < 0.05,
+    win = np.where(rng.random((B, C)) < keep,
                    rng.integers(0, N, size=(B, C)), -1).astype(np.int32)
     win[::7] = -1  # rows with no kept slot
     kc = rng.integers(1, 160, size=B).astype(np.int32)
@@ -371,6 +372,36 @@ def test_weight_scatter_kernel_matches_plain(cuda, budget):
     assert torch.equal(mapped, mapped_p) and torch.equal(gk, gk_p)
     torch.testing.assert_close(nw, nw_p, rtol=1e-5, atol=0)
     assert float(nw.sum()) > 0 or budget == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    "t99",          # the main path at t = 0.99: B = 2,048, C = 3, Cn = 85
+    "many-tiles",   # B = 2,048, C = 240: 480 tiles of 1,024 slots
+    "budget-cut",   # C = 240, a budget that ends inside a tile
+    "none-kept",    # an all -1 win
+])
+def test_weight_scatter_kernel_at_main_path_shapes(cuda, shape):
+    """Two launches, outputs equal to the plain version (node weights
+    within rtol 1e-5: the atomics sum in another order)."""
+    C, keep = (3, 0.3) if shape == "t99" else (240, 0.02)
+    arrays, nn, ng = _weight_inputs(23, B=2048, C=C, N=20_000, Cn=85,
+                                    num_nodes=135_992, num_graphs=583, keep=keep)
+    if shape == "none-kept":
+        arrays[0][:] = -1
+    n_kept = int((arrays[0] >= 0).sum())
+    budget = n_kept // 2 + 7 if shape == "budget-cut" else 8 * 2048
+    args = [torch.from_numpy(x).to(cuda) for x in arrays]
+    before = pdi.WEIGHT_SCATTER.launches
+    got = pdi.weight_scatter(*args, nn, ng, budget)
+    torch.cuda.synchronize()
+    assert pdi.WEIGHT_SCATTER.launches == before + 1
+    want = pdi.weight_scatter_torch(*args, nn, ng, budget)
+    for j in (1, 2, 3):
+        assert torch.equal(got[j], want[j]), j
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    assert int(got[3]) == max(n_kept - budget, 0)
+    assert (n_kept == 0) == (float(got[0].abs().sum()) == 0)
 
 
 @pytest.mark.cuda
@@ -412,11 +443,18 @@ def test_align_step_on_card_matches_plain_and_shards(cuda, tmp_path, t):
          pad_probes=0),
     dict(seed=3, Lb=192, Lr=64, short=True),
     dict(seed=5, Gs=4, P=14, Pb=16, Lb=1024, Lr=160, C=200, Nb=64),
+    dict(seed=6, n_run=40),                  # both strands found
+    dict(seed=7, rev_frac=1.0),              # reverse only
+    dict(seed=11, twins=True, C=30),         # stage-2 ties
+    dict(seed=9, max_probes=40),             # more than 32 probes a pair
+    dict(seed=10, P=200, Pb=256, Lb=192, Lr=32, C=8, Nb=24),  # Pb = 256
 ])
 def test_pair_cascade_kernel_matches_plain(cuda, case):
     """Every row, pads included, equals the plain version on the card: reads
     with N and read_len < Lr, terminal-free rows, pairs without probes,
-    stage-2 winners past the first probe, reads past the last window."""
+    stage-2 winners past the first probe, reads past the last window, both
+    strands found (the forward wins), reverse-only reads, stage-2 ties (the
+    lowest probe row wins), more than 32 probes a pair, Pb = 256."""
     arrays, _n_real = synth.cascade_case(**case)
     args = [torch.from_numpy(a).to(cuda) for a in arrays]
     before = dc.PAIR_CASCADE.launches
