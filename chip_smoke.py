@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of groot_tpu_torch (the PyTorch + CUDA port) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--baseline-csrc DIR]
 
 Phases, any failure exits non-zero:
   1. preflight: torch/CUDA/nvcc/triton versions, the card's name and power
@@ -51,19 +51,25 @@ Phases, any failure exits non-zero:
   10. trace: index, align (device and cascade engines), haplotype and the
      data-plane step on the card once more under torch.profiler, for the
      card's busy share of each run's wall time and each kernel's device
-     time.
+     time; each kernel's traced launches beside its wrapper's count for the
+     same run, where a launch the trace lacks must be one of the kernel
+     records the profiler lost (a runtime launch call with no record).
+With --baseline-csrc DIR (an earlier groot_tpu_torch/csrc, e.g. written
+out with git show), DIR's khf_sketch and read_hash kernels are built into
+their own library and timed beside this version's at the same inputs
+(equal outputs required; `baseline_ms`, `baseline_device_ms`).
 Every kernel must launch in the run of its command or path (4, 5, 5b, 6 or
 8), counted from 0 just before it. The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launches, errors,
 times (`ms`: CUDA events over back-to-back calls, the Python wrapper
 included; `device_ms`: the device time a launch in phase 10's traces, all
 the entry point's device functions summed; `timed_device_ms`: the same at
-the inputs `ms` is timed on, for `weight_scatter` and `pair_cascade`, else
-null), the least time the card could take for the same work (`bound_ms`:
-the larger of the bytes the function must move over 3.35 TB/s and its
-operations over 67 T op/s, the H100's non-tensor rate; `bound_by` says
-which) and, where one PyTorch call computes the same function, that call's
-time (`library_ms`, else null).
+the inputs `ms` is timed on, for `khf_sketch`, `read_hash`,
+`weight_scatter` and `pair_cascade`, else null), the least time the card
+could take for the same work (`bound_ms`: the larger of the bytes the
+function must move over 3.35 TB/s and its operations over 67 T op/s, the
+H100's non-tensor rate; `bound_by` says which) and, where one PyTorch call
+computes the same function, that call's time (`library_ms`, else null).
 """
 
 from __future__ import annotations
@@ -211,9 +217,10 @@ def build() -> float:
     return dt
 
 
-def sketch_parity(seed: int, dev) -> dict:
+def sketch_parity(seed: int, dev, base=None) -> dict:
     """KHF-sketch kernel vs its plain version (and the host goldens). The
-    first shape is the main path's batch; its times go into the summary."""
+    first shape is the main path's batch; its times go into the summary.
+    With `base` (a _Baseline), the earlier kernel is timed beside it."""
     from groot_tpu_torch.io import native
 
     from groot_tpu_torch.ops import nthash
@@ -245,18 +252,93 @@ def sketch_parity(seed: int, dev) -> dict:
             e = _max_abs_err(g, want)
             _check(e == 0.0, f"sketch k{k} s{s} L{L}: kernel != {name}")
         err = max(err, _max_abs_err(g, checks["plain"]))
-        ms = _time_ms(lambda: khf_sketch(c, v, k, s), dev)
-        pms = _time_ms(lambda: nthash.khf_sketch_torch(c, v, k, s), dev, 5)
+        m = {"ms": _time_ms(lambda: khf_sketch(c, v, k, s), dev),
+             "plain_ms": _time_ms(lambda: nthash.khf_sketch_torch(c, v, k, s), dev, 5),
+             "timed_device_ms": _device_ms(lambda: khf_sketch(c, v, k, s), "khf_sketch")
+             if dev.type == "cuda" else None}
+        if base is not None:
+            m.update(base.timed("khf_sketch", lambda: base.khf_sketch(c, v, k, s),
+                                got, dev))
         _say(f"khf_sketch k{k} s{s} L{L} B{B}: equal to plain/native/numpy; "
-             f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+             + _times_text(m))
         # bytes: the reads' bases (not the padding) and lengths in, the
         # sketches out; ops: per k-mer the canonical rolling hash (~8) and
         # s multiplicative slots (~4 each)
         n_kmer = int(np.clip(lens.astype(np.int64) - k + 1, 0, None).sum())
-        res.append((ms, pms, _bound(int(lens.sum()) + lens.nbytes + B * s * 8,
-                                    n_kmer * (8 + 4 * s))))
-    ms, pms, bound = res[0]  # the main path's shape
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
+        res.append({**m, **_bound(int(lens.sum()) + lens.nbytes + B * s * 8,
+                                  n_kmer * (8 + 4 * s))})
+    return {"max_abs_err": err, **res[0]}  # the main path's shape
+
+
+def _times_text(m: dict) -> str:
+    """The times of a kernel's metrics dict, as one phrase."""
+    text = (f"kernel {m['ms']:.4f} ms (device {m.get('timed_device_ms')} ms), "
+            f"plain {m['plain_ms']:.4f} ms")
+    if "baseline_ms" in m:
+        text += (f"; the baseline kernel {m['baseline_ms']:.4f} ms (device "
+                 f"{m['baseline_device_ms']} ms), equal to this one")
+    return text
+
+
+class _Baseline:
+    """An earlier version of the kernels (its csrc directory, built into its
+    own library) called with this version's wrappers' arguments, for a
+    side-by-side timing in one run. Its launches are not counted."""
+
+    def __init__(self, csrc: str):
+        import ctypes
+        from pathlib import Path
+
+        from groot_tpu_torch import _build
+
+        src = Path(csrc).resolve()
+        t0 = time.time()
+        self.lib = ctypes.CDLL(str(_build.build(src, src / "_build")))
+        _say(f"baseline kernels from {csrc}: built in {time.time() - t0:.1f}s")
+        self._fns = {}
+
+    def _call(self, name: str, dev, *args) -> None:
+        import ctypes
+
+        from groot_tpu_torch import _build
+
+        fn = self._fns.get(name)
+        if fn is None:
+            kern = _build.KERNELS[name]
+            fn = getattr(self.lib, kern.symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(kern.argtypes) + [ctypes.c_void_p]
+            self._fns[name] = fn
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        _check(err == 0, f"baseline {name} launch failed ({err})")
+
+    def khf_sketch(self, codes, valid_len, k: int, s: int):
+        B, L = codes.shape
+        out = torch.empty((B, s), dtype=torch.int64, device=codes.device)
+        self._call("khf_sketch", codes.device, codes.data_ptr(),
+                   valid_len.data_ptr(), out.data_ptr(), B, L, k, s)
+        return out
+
+    def read_hashes(self, codes, lengths, rpow32, rinv32, k: int, WPH: int):
+        B, L = codes.shape
+        na = L + 1 - k
+        out = [torch.empty(shape, dtype=torch.int32, device=codes.device)
+               for shape in ((B, WPH), (B, WPH), (B, na), (B, na))]
+        self._call("read_hash", codes.device, codes.data_ptr(), lengths.data_ptr(),
+                   rpow32.data_ptr(), rinv32.data_ptr(),
+                   *(t.data_ptr() for t in out), B, L, k, WPH)
+        return tuple(out)
+
+    def timed(self, name: str, fn, want, dev) -> dict:
+        """The baseline's outputs must equal `want` (this version's); then
+        its CUDA-event and device times at the same inputs."""
+        got = fn()
+        _sync(dev)
+        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+        _check(all(torch.equal(a, b) for a, b in pairs),
+               f"baseline {name} != this version's kernel")
+        return {"baseline_ms": _time_ms(fn, dev),
+                "baseline_device_ms": _device_ms(fn, name)}
 
 
 def make_data(work: str, seed: int) -> str:
@@ -365,9 +447,10 @@ def window_parity(work: str, dev) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
 
 
-def phase_a_parity(work: str, fq: str, dev) -> dict:
+def phase_a_parity(work: str, fq: str, dev, base=None) -> dict:
     """Read-hash and seed-scan kernels vs their plain versions on the rows
-    of the first batch of the end-to-end reads."""
+    of the first batch of the end-to-end reads (with `base`, the earlier
+    read-hash kernel timed beside this one)."""
     from groot_tpu_torch.align.batch_host import WindowTables
     from groot_tpu_torch.config import Info
 
@@ -427,8 +510,12 @@ def phase_a_parity(work: str, fq: str, dev) -> dict:
     rh = {"max_abs_err": rh_err,
           "ms": _time_ms(lambda: dj.read_hashes(*args), dev),
           "plain_ms": _time_ms(lambda: dj.read_hashes_torch(*args), dev, 5),
+          "timed_device_ms": _device_ms(lambda: dj.read_hashes(*args), "read_hash")
+          if dev.type == "cuda" else None,
           **_bound(int(ln.sum()) + _nbytes(lens) + 8 * int(ln.max()) + 4 * n_hash,
                    8 * int(ln.sum()))}
+    if base is not None:
+        rh.update(base.timed("read_hash", lambda: base.read_hashes(*args), PH, dev))
     # seed_scan: the rows in, one word a row out, and at least one anchor
     # chain (n_offs + 1 words) per row and strand from the path table and
     # per read of the rows and strand from its anchor hashes
@@ -441,10 +528,10 @@ def phase_a_parity(work: str, fq: str, dev) -> dict:
               lambda: dj.seed_scan_torch(al._dev, *PH, *rows_t, **kw), dev, 5),
           **_bound(_nbytes(rows_t, out) + 4 * chain
                    + 4 * 2 * n_read * (sx["n_offs"] + 1), chain)}
-    _say(f"phase A on one batch: {len(codes)} mapped reads, "
-         f"{rows_t.shape[1]} rows ({hits} stage-1 hits), D1 {sx['D1']}; "
-         f"read_hash kernel {rh['ms']:.4f} ms plain {rh['plain_ms']:.4f} ms; "
-         f"seed_scan kernel {ss['ms']:.4f} ms plain {ss['plain_ms']:.4f} ms")
+    _say(f"phase A on one batch: {len(codes)} mapped reads (L {codes.shape[1]}, "
+         f"WPH {sx['WPH']}), {rows_t.shape[1]} rows ({hits} stage-1 hits), D1 "
+         f"{sx['D1']}; read_hash {_times_text(rh)}; seed_scan kernel "
+         f"{ss['ms']:.4f} ms plain {ss['plain_ms']:.4f} ms")
     return {"read_hash": rh, "seed_scan": ss}
 
 
@@ -806,6 +893,20 @@ def _device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+# torch.profiler can lose the kernel records of the first launches of a
+# session (seen on the H100 in every session after a long one: the runtime
+# launch call is traced, the kernel's record is not). Each session first
+# spins this many tiny kernels, which take that loss and are left out.
+ABSORB = 32
+ABSORB_KERNEL = "spin_kernel"  # the device function of torch.cuda._sleep
+
+
+def _absorb() -> None:
+    for _ in range(ABSORB):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
 def _device_ms(fn, name: str, iters: int = 20):
     """Device milliseconds a call of kernel `name` (its device functions
     summed) over `iters` calls after warm-up, from a torch.profiler trace;
@@ -815,6 +916,7 @@ def _device_ms(fn, name: str, iters: int = 20):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _absorb()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -825,15 +927,28 @@ def _device_ms(fn, name: str, iters: int = 20):
 def _traced(fn):
     """Run fn under torch.profiler: (wall s, busy s = the union of the
     device intervals of every kernel and copy, device events, {kernel:
-    (launches, device us)})."""
+    (launches, device us)}, {kernel: launches its wrapper counted}, {the
+    trace's runtime launch calls, kernel records})."""
     from torch.profiler import ProfilerActivity, profile
 
+    from groot_tpu_torch import _build
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _absorb()
+        _build.reset_counts()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         dt = time.time() - t0
-    dev_events = _device_events(prof)
+    counted = {n: k.launches for n, k in _build.KERNELS.items() if k.launches}
+    events = prof.events()
+    dev_events = [e for e in _device_events(prof) if ABSORB_KERNEL not in e.name]
+    records = {
+        "launch_calls": sum(e.device_type == torch.autograd.DeviceType.CPU
+                            and "LaunchKernel" in e.name for e in events) - ABSORB,
+        "kernel_records": sum(not e.name.startswith(("Memcpy", "Memset"))
+                              for e in dev_events),
+    }
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     busy_us = 0.0
     if spans:
@@ -845,7 +960,7 @@ def _traced(fn):
             else:
                 cur_e = max(cur_e, b)
         busy_us += cur_e - cur_s
-    return dt, busy_us / 1e6, len(spans), _kernel_times(dev_events)
+    return dt, busy_us / 1e6, len(spans), _kernel_times(dev_events), counted, records
 
 
 def traced_runs(work: str, fq: str, dev, plane_fn) -> dict:
@@ -862,9 +977,9 @@ def traced_runs(work: str, fq: str, dev, plane_fn) -> dict:
         "haplotype": lambda: _haplotype(work, "haplo-traced", dev.type),
         "data plane": plane_fn,
     }
-    per_kernel = {}
+    per_kernel, ran = {}, {}
     for cmd, fn in runs.items():
-        dt, busy, n_events, kern = _traced(fn)
+        dt, busy, n_events, kern, counted, records = _traced(fn)
         if not n_events:
             _say(f"trace {cmd}: {dt:.2f}s; device busy share not measured "
                  "(no device events)")
@@ -872,11 +987,29 @@ def traced_runs(work: str, fq: str, dev, plane_fn) -> dict:
         _say(f"trace {cmd}: {dt:.2f}s under the profiler; device busy "
              f"{busy:.4f}s = {100 * busy / dt:.3f}% of the wall time over "
              f"{n_events} device events")
+        # A launch the trace lacks must be one of the kernel records the
+        # profiler lost (its runtime launch call is in the trace, the
+        # kernel's record is not), never a launch the script miscounts.
+        short = {k: counted.get(k, 0) - kern.get(k, (0, 0.0))[0]
+                 for k in sorted(set(kern) | set(counted))}
+        lost = records["launch_calls"] - records["kernel_records"]
+        _say(f"trace {cmd}: launches traced / counted by the wrappers: "
+             + json.dumps({k: [kern.get(k, (0, 0.0))[0], counted.get(k, 0)]
+                           for k in short})
+             + f"; launch calls {records['launch_calls']}, kernel records "
+             f"{records['kernel_records']}")
+        _check(min(short.values(), default=0) >= 0 and lost >= sum(short.values()),
+               f"trace {cmd}: the port's launches missing from the trace "
+               f"({short}) exceed the kernel records it lost ({lost})")
         for k, (n, us) in kern.items():
             n0, us0 = per_kernel.get(k, (0, 0.0))
             per_kernel[k] = (n0 + n, us0 + us)
-    _say("trace: port kernels (launches, device ms, device ms a launch):",
-         json.dumps({k: [n, round(us / 1e3, 4), round(us / 1e3 / max(n, 1), 6)]
+        for k, n in counted.items():
+            ran[k] = ran.get(k, 0) + n
+    _say("trace: port kernels (launches traced, counted; device ms traced, "
+         "device ms a launch):",
+         json.dumps({k: [n, ran.get(k, 0), round(us / 1e3, 4),
+                         round(us / 1e3 / max(n, 1), 6)]
                      for k, (n, us) in sorted(per_kernel.items())}))
     if per_kernel:
         _check(set(per_kernel) == set(KERNEL_FUNCS),
@@ -1244,17 +1377,22 @@ def accuracy_phase(work: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline-csrc", metavar="DIR",
+                    help="an earlier version of groot_tpu_torch/csrc (e.g. from "
+                    "git show): its khf_sketch and read_hash kernels are "
+                    "timed beside this version's")
     args = ap.parse_args(argv)
     smi = preflight()
     dev = torch.device("cuda")
     build()
-    kernels = {"khf_sketch": sketch_parity(args.seed, dev)}
+    base = _Baseline(args.baseline_csrc) if args.baseline_csrc else None
+    kernels = {"khf_sketch": sketch_parity(args.seed, dev, base)}
     work = tempfile.mkdtemp(prefix=".chip_smoke-", dir=HERE)
     try:
         fq = make_data(work, args.seed)
         launches = build_index(work, dev)
         kernels["window_sketch"] = window_parity(work, dev)
-        kernels.update(phase_a_parity(work, fq, dev))
+        kernels.update(phase_a_parity(work, fq, dev, base))
         e2e_launches, hash_run = end_to_end(work, fq, dev)
         launches.update(e2e_launches)
         launches.update(cascade_phase(work, fq, dev, hash_run))
@@ -1288,6 +1426,7 @@ def main(argv=None) -> int:
             "timed_device_ms": m.get("timed_device_ms"),
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
+            **{k: m[k] for k in ("baseline_ms", "baseline_device_ms") if k in m},
         })
     _say(smi)
     _say(json.dumps({"kernels": rows}))

@@ -53,16 +53,16 @@ def _nvcc() -> str:
     )
 
 
-def _sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path = CSRC) -> List[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libgroot_kernels-{h.hexdigest()[:16]}.so"
+    return build_dir / f"libgroot_kernels-{h.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds: List[List[str]]) -> None:
@@ -81,16 +81,18 @@ def _run_all(cmds: List[List[str]]) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def build() -> Path:
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     """Compile csrc/*.cu into the keyed library unless it already exists:
-    one nvcc per source in parallel, then one link."""
-    so = library_path()
+    one nvcc per source in parallel, then one link. Another source
+    directory (an earlier version of the kernels, for a side-by-side
+    timing) builds into its own `build_dir`."""
+    so = library_path(csrc, build_dir)
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
-        srcs = [p for p in _sources() if p.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=build_dir) as objdir:
+        srcs = [p for p in _sources(csrc) if p.suffix == ".cu"]
         objs = [os.path.join(objdir, p.stem + ".o") for p in srcs]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
                   for p, o in zip(srcs, objs)])

@@ -31,6 +31,7 @@ alignment.go:229).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -101,18 +102,30 @@ class _GraphPack:
         return oh
 
 
+@contextlib.contextmanager
+def exact_conv():
+    """cuDNN's TF32 off for the block, then the caller's setting back: a
+    match count is an exact integer below 2^24 in float32 only without
+    TF32's 10-bit mantissa."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def _match_bits(
     path_oh: torch.Tensor, kernels: torch.Tensor, eff_len: torch.Tensor
 ) -> np.ndarray:
     """path_oh [P, Lp, 5] f32; kernels [K, Lr, 5] f32; eff_len [K] int.
     Returns packed match bits u32 [K, P, ceil(W/32)] where W = Lp - Lr + 1
     and bit o of word w is the match at offset w*32+o. Counts are exact
-    integers below 2^24 in float32, so TF32 stays off on a card."""
-    if path_oh.device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-    counts = torch.nn.functional.conv1d(
-        path_oh.permute(0, 2, 1), kernels.permute(0, 2, 1)
-    )  # [P, K, W]
+    integers below 2^24 in float32, so TF32 stays off for the conv."""
+    with exact_conv():
+        counts = torch.nn.functional.conv1d(
+            path_oh.permute(0, 2, 1), kernels.permute(0, 2, 1)
+        )  # [P, K, W]
     match = (counts == eff_len.to(counts.dtype)[None, :, None]).permute(1, 0, 2)
     K, P, W = match.shape
     W32 = -(-W // 32)

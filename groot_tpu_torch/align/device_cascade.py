@@ -43,7 +43,8 @@ from .._build import I, Kernel, P, ptr, resolve_device
 from ..graph.grootgraph import GrootGraph
 from ..io.fastx import FastqRead
 from ..ops.nthash import ASCII_TO_CODE, CODE_TO_ASCII, RC_CODE_NP
-from .aligner import MAX_CLIP, NODE_SHUFFLES, AlignmentRecord, _GraphPack
+from .aligner import (MAX_CLIP, NODE_SHUFFLES, AlignmentRecord, _GraphPack,
+                      exact_conv)
 from .batch_host import csr_expand, winners
 
 log = logging.getLogger("groot")
@@ -225,9 +226,7 @@ def _volumes(stack_codes, stack_plen, stack_term, g_idx, variants, eff,
     kern = torch.nn.functional.one_hot(variants, 6)[..., :5].float()
     kern = kern.permute(0, 1, 3, 2)  # [C, 6, 5, Lr]
     vols = [[] for _ in range(6)]
-    prev_tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False  # exact integer counts
-    try:
+    with exact_conv():  # exact integer counts
         for c0 in range(0, C, PLAIN_CHUNK):
             cs = slice(c0, min(c0 + PLAIN_CHUNK, C))
             n = cs.stop - cs.start
@@ -257,8 +256,6 @@ def _volumes(stack_codes, stack_plen, stack_term, g_idx, variants, eff,
                 )
             for v in (1, 2, 4, 5):  # clip matches: ungated
                 vols[v].append(match[:, :, v])
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev_tf32
     cat = [torch.cat(v, 0) for v in vols]
     return cat[0], cat[3], cat[1], cat[2], cat[4], cat[5]
 

@@ -1120,8 +1120,7 @@ class DeviceJoinAligner(HashAligner):
             self._count("s2_inline_pairs", int((need_f | need_r).sum()))
 
         # ---- combine per pair ------------------------------------------
-        # (overhang-risk stage-2 pairs are in fb_extra by now; interior
-        # stage-2 was resolved inline above, so s2 here is live and exact)
+        # (stage 2 was resolved inline above, so s2 here is live and exact)
         found_o = s1 | s2 | s3 | s4                    # [n_pairs, 2]
         found = found_o.any(axis=1)
         ori = np.where(found_o[:, 0], 0, 1)
@@ -1298,8 +1297,9 @@ class DeviceJoinAligner(HashAligner):
         with self._st_lock:
             stt = self.stage_times
             stt["reduce_s"] += t1 - t0
+            stt["drainA_s"] += drainA
             stt["verify_emit_s"] += t2 - t1
             stt["residue_s"] += t3 - t2
-            stt["stage2_combos"] += int(fb_extra.sum())
+            stt["verify_fb_combos"] += int(fb_extra.sum())
             stt["fb_combos"] += nfb
             stt["combos"] += n_combos

@@ -92,6 +92,56 @@ def canonical_hashes_np(codes: np.ndarray, k: int) -> np.ndarray:
     return np.minimum(fwd, rev)
 
 
+def _ror_np(x: np.ndarray, r) -> np.ndarray:
+    return _rol_np(x, np.uint64(64) - np.asarray(r, dtype=np.uint64) % np.uint64(64))
+
+
+def canonical_hashes_prefix_np(codes: np.ndarray, k: int, lanes: int = 32) -> np.ndarray:
+    """All canonical k-mer hashes of a coded sequence by the prefix-XOR
+    identity, walked as csrc/khf_sketch.cu walks a read. With X, Y the
+    exclusive prefix-XORs of ror(seed[c_m], m mod 64) and rol(seed_rc[c_m],
+    m mod 64):
+
+      f(i) = rol(X[i+k] ^ X[i], (i+k-1) mod 64),  r(i) = ror(Y[i+k] ^ Y[i], i mod 64)
+
+    The bases go `lanes` at a time (a warp), one chunk starting at base k-1:
+    an inclusive XOR-scan within the chunk plus the carry of the chunks
+    before gives X[j+1] for each base j, and X[i] of the k-mer ending at j
+    comes from a ring of next_pow2(k + lanes) prefixes."""
+    codes = np.minimum(np.asarray(codes, dtype=np.uint8), 4)
+    L = len(codes)
+    nk = L - k + 1
+    if nk <= 0:
+        return np.zeros((0,), dtype=np.uint64)
+    ring = 64
+    while ring < k + lanes:
+        ring *= 2
+    rx = np.zeros(ring, np.uint64)
+    ry = np.zeros(ring, np.uint64)
+    out = np.empty(nk, np.uint64)
+    cx = cy = np.uint64(0)
+    lane = np.arange(lanes)
+    for c0 in range(k - 1 - lanes * ((k - 1 + lanes - 1) // lanes), L, lanes):
+        j = c0 + lane
+        base = (j >= 0) & (j < L)
+        c = codes[np.clip(j, 0, L - 1)]
+        jm = (j % 64).astype(np.uint64)
+        x = np.where(base, _ror_np(SEEDS_NP[c], jm), np.uint64(0))
+        y = np.where(base, _rol_np(SEEDS_RC_NP[c], jm), np.uint64(0))
+        x = np.bitwise_xor.accumulate(x) ^ cx  # X[j + 1]
+        y = np.bitwise_xor.accumulate(y) ^ cy
+        rx[(j[base] + 1) % ring] = x[base]
+        ry[(j[base] + 1) % ring] = y[base]
+        cx, cy = x[-1], y[-1]
+        i = j + 1 - k
+        ends = (i >= 0) & (i < nk)
+        ie, je = i[ends], j[ends]
+        f = _rol_np(x[ends] ^ rx[ie % ring], (je % 64).astype(np.uint64))
+        r = _ror_np(y[ends] ^ ry[ie % ring], (ie % 64).astype(np.uint64))
+        out[ie] = np.minimum(f, r)
+    return out
+
+
 def multihash_np(base: np.ndarray, k: int, num: int) -> np.ndarray:
     """ntHash multihash: [n] base hashes -> [n, num] derived hashes."""
     base = np.asarray(base, dtype=np.uint64)

@@ -22,7 +22,7 @@ KHF_SKETCH = Kernel(
     replaces="groot_tpu/ops/pallas_sketch.py:274",
 )
 MAX_S = 64    # kMaxSlots in csrc/khf_sketch.cu
-MAX_K = 1024  # kMaxK: the kernel's shared row tile holds kTile + k - 1 bases
+MAX_K = 1024  # kMaxK: a warp's ring of next_pow2(k + 32) prefixes fits 48 KB
 
 
 def khf_sketch(

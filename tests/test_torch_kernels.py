@@ -104,6 +104,93 @@ def test_khf_sketch_kernel_long_reads(cuda, k, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,s,L,B", [
+    (31, 20, 150, 2048),    # the main path's batch
+    (31, 20, 150, 1001),    # B not a multiple of the 8 reads a block
+    (31, 20, 150, 100),     # fewer reads than SMs: a read a block
+    (64, 20, 300, 517),     # the rotates wrap at 64 ...
+    (65, 20, 300, 517),     # ... and past it
+    (33, 20, 160, 256),     # k + 32 = 65: the next ring size
+    (1024, 20, 3000, 40),   # the longest k: one 32 KB ring a block
+    (31, 1, 150, 300),      # one slot
+    (31, 8, 150, 77),       # the edges of each register-array size
+    (31, 9, 150, 77),
+    (31, 33, 150, 77),
+    (31, 64, 150, 300),     # the most slots: two a lane
+    (31, 20, 40_000, 64),   # contigs: 8 warps share a read
+    (65, 64, 5_000, 33),    # a shared read, two slots a lane
+    (51, 30, 1_024, 100),   # the shortest shared reads, most with idle warps
+])
+def test_khf_sketch_kernel_shapes(cuda, k, s, L, B):
+    """The kernel equals the plain version and the numpy golden: rows with
+    too few k-mers (valid_len 0, < k, = k), valid_len = L and past it,
+    all-N rows and codes above 4 (N)."""
+    rng = np.random.default_rng(k * 1000 + s + B)
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    codes[rng.random((B, L)) < 0.02] = 4
+    codes[rng.random((B, L)) < 0.002] = 200
+    codes[1] = 4
+    lens = rng.integers(k, L + 1, size=B).astype(np.int32)
+    lens[:6] = (0, L, k - 1, k, L, L + 5)
+    c, v = torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda)
+    before = KHF_SKETCH.launches
+    got = khf_sketch(c, v, k, s)
+    torch.cuda.synchronize()
+    assert KHF_SKETCH.launches == before + 1
+    assert torch.equal(got, nthash.khf_sketch_torch(c, v, k, s))
+    want = nthash.khf_sketch_np_batch(np.minimum(codes, 4), np.minimum(lens, L), k, s)
+    assert (got.cpu().numpy().view(np.uint64) == want).all()
+    assert (want[[0, 2]] == np.uint64(2**64 - 1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,k,WPH", [
+    (1765, 160, 31, 194),   # the main path's batch
+    (13, 150, 31, 194),     # B not a multiple of the 8 reads a block, L of 32
+    (517, 192, 31, 194),    # L = MAXL
+    (64, 101, 51, 194),     # L not a multiple of 4: the codes staged bytewise
+    (9, 33, 33, 194),       # one anchor a read
+    (40, 700, 31, 701),     # past 512 bases: rows read back from device memory
+])
+def test_read_hash_kernel_matches_plain(cuda, B, L, k, WPH):
+    """Every output equals the plain version's: lengths 0, below k, k and
+    L, N bases, and codes above 4, which count as N."""
+    rng = np.random.default_rng(B + L)
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    codes[rng.random((B, L)) < 0.02] = 4
+    codes[rng.random((B, L)) < 0.005] = 77
+    lens = rng.integers(1, L + 1, size=B).astype(np.int32)
+    lens[:4] = (0, k - 1, L, k)
+    tabs = rng.integers(-2**31, 2**31, size=(2, L + 2)).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda) for x in (codes, lens, tabs[0], tabs[1])]
+    before = dj.READ_HASH.launches
+    got = dj.read_hashes(*args, k, WPH)
+    torch.cuda.synchronize()
+    assert dj.READ_HASH.launches == before + 1
+    want = dj.read_hashes_torch(args[0].clamp(max=4), *args[1:], k, WPH)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_wrappers_take_no_plain_route_off_the_cpu():
+    """Only a CPU tensor takes the plain version: other devices raise, and
+    the card raises where there is none."""
+    codes = torch.zeros((4, 40), dtype=torch.uint8, device="meta")
+    lens = torch.zeros(4, dtype=torch.int32, device="meta")
+    tab = torch.zeros(42, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        khf_sketch(codes, lens, K, S)
+    with pytest.raises(ValueError, match="no kernel"):
+        dj.read_hashes(codes, lens, tab, tab, K, 194)
+    if not torch.cuda.is_available():
+        from groot_tpu_torch.ops.sketch import sketch_reads_u64
+
+        with pytest.raises((RuntimeError, AssertionError)):
+            sketch_reads_u64(np.zeros((4, 40), np.uint8), np.full(4, 40, np.int32),
+                             K, S, "cuda")
+
+
+@pytest.mark.cuda
 def test_phase_a_kernels_match_plain(cuda, tmp_path):
     alleles = synth.tiny_db(str(tmp_path / "msa"))
     run_index(Info(kmer_size=K, sketch_size=S, window_size=W,

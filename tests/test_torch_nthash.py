@@ -76,6 +76,24 @@ def test_khf_sketch_reverse_complement_canonical(k, s):
         assert (fwd[i] == nthash.khf_sketch_np(codes[i], k, s)).all()
 
 
+@pytest.mark.parametrize("L", [1500, 33_000])
+@pytest.mark.parametrize("k", [31, 33, 51, 64, 65, 97, 1024])
+def test_prefix_xor_identity_matches_direct_and_reference(k, L):
+    """The CUDA sketch's hash (canonical_hashes_prefix_np walks its chunks,
+    carries and ring) equals the direct O(k) formula and the reference's
+    JAX canonical_hashes; k = 64 and 65 wrap the rotates, k = 33 and 97 need
+    the next ring size (k + 32 = 65, 129), k = 1,024 is the kernel's
+    limit and a 33 kb read walks ~1,000 chunks."""
+    rng = np.random.default_rng(k + L)
+    codes = rng.integers(0, 4, size=L).astype(np.uint8)
+    codes[rng.random(L) < 0.01] = 4
+    got = nthash.canonical_hashes_prefix_np(codes, k)
+    assert got.shape == (L - k + 1,)
+    assert (got == nthash.canonical_hashes_np(codes, k)).all()
+    hi, lo = ref_nthash.canonical_hashes(codes, k)
+    assert (got == u64.to_np(np.asarray(hi), np.asarray(lo))).all()
+
+
 def test_sketch_wrapper_cpu_and_native():
     k, s = 31, 20
     codes, lens = _batch(4, 32, 150, k)

@@ -146,6 +146,48 @@ def test_engine_matches_reference(data, port_engine, ref_engine):
     assert got[4] == want[4] and got[4]
 
 
+def test_device_engine_stage_times(data):
+    """The device engine's stage_times split its host tail: drain A, a part
+    of reduce_s, has its own key, and the combos that verification sends to
+    the host cascade are counted under that name."""
+    tmp, fq = data
+    stats = _align("port", str(tmp / "port"), fq, str(tmp / "p-times.bam"),
+                   "device")[0]
+    st = stats.stage_times
+    assert 0 <= st["drainA_s"] <= st["reduce_s"]
+    assert st["verify_fb_combos"] == 0 and "stage2_combos" not in st
+    assert st["combos"] > 0
+
+
+def test_match_bits_leaves_tf32_flag_as_it_was(monkeypatch):
+    """_match_bits runs its conv with cuDNN's TF32 off and gives the flag
+    back as the caller had it, whichever that was."""
+    from groot_tpu_torch.align import aligner
+
+    seen = []
+    conv = torch.nn.functional.conv1d
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv(*a, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv1d", spy)
+    path = torch.ones((2, 40, 5))  # all N: every offset matches
+    kern = torch.zeros((3, 8, 5))
+    kern[:, :, 0] = 1.0
+    eff = torch.full((3,), 8)
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            bits = aligner._match_bits(path, kern, eff)
+            assert torch.backends.cudnn.allow_tf32 is flag
+            assert bits.shape == (3, 2, 2) and (bits[:, :, 0] == 0xFFFFFFFF).all()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert seen == [False, False]
+
+
 def test_cli_index_align_report_cpu(data, tmp_path, capsys):
     _tmp, fq = data
     msa = str(tmp_path / "msa")
