@@ -32,7 +32,8 @@ Phases, any failure exits non-zero:
   6. haplotype: `haplotype --device cuda` (the EM kernel) and `--device
      cpu` on the device run's graphs call the same alleles; the kernel
      gives its plain version's iteration counts (on the card and on the
-     CPU) and alphas within 1e-5 relative, and is timed;
+     CPU) and alphas within 1e-5 relative, and is timed; the batch's shapes
+     and the slowest graph's rounds and microseconds a round are printed;
   7. accuracy: the `accuracy` command scores the device run's BAM;
   8. data plane: the fused align step (parallel.device_index: KHF-sketch,
      LSH-query and weight-scatter kernels) over all the reads in batches of
@@ -55,17 +56,19 @@ Phases, any failure exits non-zero:
      same run, where a launch the trace lacks must be one of the kernel
      records the profiler lost (a runtime launch call with no record).
 With --baseline-csrc DIR (an earlier groot_tpu_torch/csrc, e.g. written
-out with git show), DIR's khf_sketch and read_hash kernels are built into
-their own library and timed beside this version's at the same inputs
-(equal outputs required; `baseline_ms`, `baseline_device_ms`).
+out with git show), DIR's khf_sketch, read_hash, seed_scan and em_batched
+kernels are built into their own library and timed beside this version's
+at the same inputs (equal outputs required; for em_batched equal iteration
+counts and alphas within 1e-5 of max(1, |alpha|), as summation orders may
+differ; `baseline_ms`, `baseline_device_ms`).
 Every kernel must launch in the run of its command or path (4, 5, 5b, 6 or
 8), counted from 0 just before it. The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launches, errors,
 times (`ms`: CUDA events over back-to-back calls, the Python wrapper
 included; `device_ms`: the device time a launch in phase 10's traces, all
 the entry point's device functions summed; `timed_device_ms`: the same at
-the inputs `ms` is timed on, for `khf_sketch`, `read_hash`,
-`weight_scatter` and `pair_cascade`, else null), the least time the card
+the inputs `ms` is timed on, for `khf_sketch`, `read_hash`, `seed_scan`,
+`em_batched`, `weight_scatter` and `pair_cascade`, else null), the least time the card
 could take for the same work (`bound_ms`: the larger of the bytes the
 function must move over 3.35 TB/s and its operations over 67 T op/s, the
 H100's non-tensor rate; `bound_by` says which) and, where one PyTorch call
@@ -276,7 +279,7 @@ def _times_text(m: dict) -> str:
             f"plain {m['plain_ms']:.4f} ms")
     if "baseline_ms" in m:
         text += (f"; the baseline kernel {m['baseline_ms']:.4f} ms (device "
-                 f"{m['baseline_device_ms']} ms), equal to this one")
+                 f"{m['baseline_device_ms']} ms), agreeing with this one")
     return text
 
 
@@ -297,6 +300,10 @@ class _Baseline:
         _say(f"baseline kernels from {csrc}: built in {time.time() - t0:.1f}s")
         self._fns = {}
 
+    # C signatures of the earlier kernels that differ from this version's:
+    # em_batched before its redesign took the membership as CSR both ways
+    _ARGTYPES = {"em_batched": ("P",) * 6 + ("I",) * 5 + ("P", "P")}
+
     def _call(self, name: str, dev, *args) -> None:
         import ctypes
 
@@ -307,7 +314,10 @@ class _Baseline:
             kern = _build.KERNELS[name]
             fn = getattr(self.lib, kern.symbol)
             fn.restype = ctypes.c_int
-            fn.argtypes = list(kern.argtypes) + [ctypes.c_void_p]
+            types = self._ARGTYPES.get(name)
+            types = (kern.argtypes if types is None
+                     else [getattr(_build, t) for t in types])
+            fn.argtypes = list(types) + [ctypes.c_void_p]
             self._fns[name] = fn
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         _check(err == 0, f"baseline {name} launch failed ({err})")
@@ -329,14 +339,56 @@ class _Baseline:
                    *(t.data_ptr() for t in out), B, L, k, WPH)
         return tuple(out)
 
-    def timed(self, name: str, fn, want, dev) -> dict:
-        """The baseline's outputs must equal `want` (this version's); then
-        its CUDA-event and device times at the same inputs."""
+    def seed_scan(self, tables, PHf, PHr, AHf, AHr, *rows, D1: int, k: int,
+                  n_offs: int):
+        from groot_tpu_torch import _build
+
+        ah = tables["ah32"]
+        out = torch.empty(rows[0].shape[0], dtype=torch.int32, device=ah.device)
+        p = _build.ptr
+        self._call("seed_scan", ah.device, p(ah), ah.shape[0], p(tables["pe2"]),
+                   p(tables["path_len"]), p(tables["ph_start"]),
+                   p(tables["tfree"]), int(tables["rinv1"]) & 0xFFFFFFFF,
+                   p(PHf), p(PHr), PHf.shape[1], p(AHf), p(AHr), AHf.shape[1],
+                   *(p(t) for t in rows), rows[0].shape[0], D1, k, n_offs,
+                   p(out))
+        return out
+
+    def em_batched(self, membership, counts, n_paths, min_it: int, max_it: int):
+        """The earlier EM kernel, fed the CSR (ec -> paths, path -> ecs) of
+        the membership its wrapper built."""
+        def csr(mask):
+            G, R, _C = mask.shape
+            nz = mask.nonzero()
+            per_row = torch.bincount(nz[:, 0] * R + nz[:, 1], minlength=G * R)
+            ptr_ = torch.zeros(G * R + 1, dtype=torch.int64, device=mask.device)
+            ptr_[1:] = torch.cumsum(per_row, 0)
+            return ptr_, nz[:, 2].to(torch.int32).contiguous()
+
+        G, E, Pn = membership.shape
+        member = membership != 0
+        ec_ptr, ec_paths = csr(member)
+        path_ptr, path_ecs = csr(member.transpose(1, 2))
+        it = torch.empty(G, dtype=torch.int32, device=membership.device)
+        alpha = torch.empty((G, Pn), dtype=torch.float32, device=membership.device)
+        self._call("em_batched", membership.device,
+                   *(t.data_ptr() for t in (ec_ptr, ec_paths, path_ptr, path_ecs,
+                                            counts, n_paths)),
+                   G, E, Pn, min_it, max_it, it.data_ptr(), alpha.data_ptr())
+        return it, alpha
+
+    def timed(self, name: str, fn, want, dev, same=None) -> dict:
+        """The baseline's outputs must equal `want` (this version's), or
+        pass `same(got, want)` where summation orders may differ; then its
+        CUDA-event and device times at the same inputs."""
         got = fn()
         _sync(dev)
-        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
-        _check(all(torch.equal(a, b) for a, b in pairs),
-               f"baseline {name} != this version's kernel")
+        if same is None:
+            pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+            ok = all(torch.equal(a, b) for a, b in pairs)
+        else:
+            ok = same(got, want)
+        _check(ok, f"baseline {name} != this version's kernel")
         return {"baseline_ms": _time_ms(fn, dev),
                 "baseline_device_ms": _device_ms(fn, name)}
 
@@ -502,6 +554,11 @@ def phase_a_parity(work: str, fq: str, dev, base=None) -> dict:
     _say(f"seed_scan sharded over [{dev}, {dev}]: equal to the unsharded scan "
          f"on {rows_t.shape[1]} rows")
     hits = int(((out & 0xFF) < 255).sum())
+    # stage-1 offsets each row admits: j <= sb, j < D1, room for the read
+    rd_, prow_, rb_, sb_, lb_ = (t.long() for t in rows_t)
+    plen_ = al._dev["path_len"][prow_].long()
+    admitted = (torch.minimum(torch.minimum(sb_, torch.full_like(sb_, sx["D1"] - 1)),
+                              plen_ - rb_ - lb_) + 1).clamp(min=0)
     # read_hash: the reads' bases, lengths and power tables in, the four
     # hash arrays out at each read's real positions (not the padding to
     # L and WPH); ~8 ops a base (prefix hashes of both strands, anchors)
@@ -526,12 +583,19 @@ def phase_a_parity(work: str, fq: str, dev, base=None) -> dict:
           "ms": _time_ms(lambda: dj.seed_scan(al._dev, *PH, *rows_t, **kw), dev),
           "plain_ms": _time_ms(
               lambda: dj.seed_scan_torch(al._dev, *PH, *rows_t, **kw), dev, 5),
+          "timed_device_ms": _device_ms(
+              lambda: dj.seed_scan(al._dev, *PH, *rows_t, **kw), "seed_scan")
+          if dev.type == "cuda" else None,
           **_bound(_nbytes(rows_t, out) + 4 * chain
                    + 4 * 2 * n_read * (sx["n_offs"] + 1), chain)}
+    if base is not None:
+        ss.update(base.timed("seed_scan",
+                             lambda: base.seed_scan(al._dev, *PH, *rows_t, **kw),
+                             out, dev))
     _say(f"phase A on one batch: {len(codes)} mapped reads (L {codes.shape[1]}, "
-         f"WPH {sx['WPH']}), {rows_t.shape[1]} rows ({hits} stage-1 hits), D1 "
-         f"{sx['D1']}; read_hash {_times_text(rh)}; seed_scan kernel "
-         f"{ss['ms']:.4f} ms plain {ss['plain_ms']:.4f} ms")
+         f"WPH {sx['WPH']}), {rows_t.shape[1]} rows ({hits} stage-1 hits, "
+         f"{float(admitted.float().mean()):.2f} admitted offsets a row), D1 "
+         f"{sx['D1']}, n_offs {sx['n_offs']}; read_hash {_times_text(rh)}; seed_scan {_times_text(ss)}")
     return {"read_hash": rh, "seed_scan": ss}
 
 
@@ -915,13 +979,16 @@ def _device_ms(fn, name: str, iters: int = 20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _absorb()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    n, us = _kernel_times(_device_events(prof)).get(name, (0, 0.0))
-    return us / 1e3 / n if n else None
+    for _attempt in range(2):  # a process's first session may record none
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _absorb()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n, us = _kernel_times(_device_events(prof)).get(name, (0, 0.0))
+        if n:
+            return us / 1e3 / n
+    return None
 
 
 def _traced(fn):
@@ -1292,9 +1359,11 @@ def _haplotype(work: str, out: str, device: str):
     return buf.getvalue().split(), tsv, dt
 
 
-def haplotype_phase(work: str, dev):
+def haplotype_phase(work: str, dev, base=None):
     """`haplotype --device cuda` (the EM kernel) vs `--device cpu`, then the
-    kernel vs its plain version on the same graphs."""
+    kernel vs its plain version on the same graphs, its batch's shapes and
+    its time a round of the slowest graph (with `base`, the earlier kernel
+    timed beside it)."""
     import glob
 
     from groot_tpu_torch.config import HaploCmd, Info
@@ -1333,9 +1402,37 @@ def haplotype_phase(work: str, dev):
     rel = float(((alpha - alpha_p).abs() / alpha_p.abs().clamp(min=1.0)).max())
     _check(rel <= 1e-5, f"em_batched: alpha differs from the plain version "
            f"by {rel:.3g} of max(1, |alpha|)")
-    ms = _time_ms(lambda: em.em_batched(*args, mi, ma), dev)
-    pms = _time_ms(lambda: em.run_em_batched_torch(*args, mi, ma), dev, 5)
+    m = {"max_abs_err": err,
+         "ms": _time_ms(lambda: em.em_batched(*args, mi, ma), dev),
+         "plain_ms": _time_ms(lambda: em.run_em_batched_torch(*args, mi, ma), dev, 5),
+         "timed_device_ms": _device_ms(lambda: em.em_batched(*args, mi, ma),
+                                       "em_batched")
+         if dev.type == "cuda" else None}
+    if base is not None:
+        def same(got, want):  # summation orders differ: 1e-5 of max(1, |alpha|)
+            return torch.equal(got[0], want[0]) and bool(
+                ((got[1] - want[1]).abs()
+                 <= 1e-5 * want[1].abs().clamp(min=1.0)).all())
+
+        m.update(base.timed("em_batched", lambda: base.em_batched(*args, mi, ma),
+                            (it, alpha), dev, same))
     G, E, Pn = arrays[0].shape
+    lay = em.em_layout(*args)
+    width, n_live = lay["width"].cpu().numpy(), lay["n_live"].cpu().numpy()
+    it_np = it.cpu().numpy()
+    slow = np.argsort(-it_np, kind="stable")[:5]
+    rounds = int(it_np.max())
+    dms = m["timed_device_ms"]
+    _say(f"em_batched batch: G={G}, E={E} (live ecs <= {int(n_live.max())}), "
+         f"P={Pn}, {int(arrays[0].sum())} membership nonzeros; "
+         f"{int((width <= em.MASK_LANES).sum())} graphs on the mask route, "
+         f"{int((width > em.MASK_LANES).sum())} on CSR; the five slowest graphs "
+         + ", ".join(f"#{g}: {int(it_np[g])} rounds ({int(n_live[g])} live ecs, "
+                     f"{int(arrays[2][g])} paths)" for g in slow)
+         + (f"; {1e3 * dms / rounds:.3f} us a round of the slowest "
+            f"({dms:.4f} ms / {rounds} rounds)" if dms else "")
+         + (f"; the baseline kernel {1e3 * m['baseline_device_ms'] / rounds:.3f}"
+            " us a round" if m.get("baseline_device_ms") else ""))
     # bytes: each graph's real (ec, path) membership cells, ec counts and
     # path count in, its iterations and its paths' alphas out (the padding
     # of the [G, E, P] batch is left out); ops: ~4 a real cell per round
@@ -1349,8 +1446,8 @@ def haplotype_phase(work: str, dev):
     _say(f"em_batched on {G} graphs (E <= {E}, P <= {Pn}, iterations "
          f"{int(it.min())}-{int(it.max())}): same iterations as plain (card "
          f"and CPU), max |alpha - plain| {err:.3g} = {rel:.3g} of max(1, "
-         f"|alpha|); kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    return launches, {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
+         f"|alpha|); {_times_text(m)}")
+    return launches, {**m, **bound}
 
 
 def accuracy_phase(work: str) -> None:
@@ -1379,8 +1476,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--baseline-csrc", metavar="DIR",
                     help="an earlier version of groot_tpu_torch/csrc (e.g. from "
-                    "git show): its khf_sketch and read_hash kernels are "
-                    "timed beside this version's")
+                    "git show): its khf_sketch, read_hash, seed_scan and "
+                    "em_batched kernels are timed beside this version's")
     args = ap.parse_args(argv)
     smi = preflight()
     dev = torch.device("cuda")
@@ -1398,7 +1495,7 @@ def main(argv=None) -> int:
         launches.update(cascade_phase(work, fq, dev, hash_run))
         kernels["pair_cascade"] = cascade_parity(work, fq, dev)
         match_bits_probe(work, fq, dev)
-        em_launches, kernels["em_batched"] = haplotype_phase(work, dev)
+        em_launches, kernels["em_batched"] = haplotype_phase(work, dev, base)
         launches.update(em_launches)
         accuracy_phase(work)
         plane_launches, plane_kernels, plane_fn = data_plane(work, fq, dev)

@@ -28,7 +28,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from .._build import I, Kernel, P, ptr, resolve_device
+from .._build import I, I64, Kernel, P, ptr, resolve_device
 
 TOLERANCE = np.nextafter(1.0, 2.0) - 1.0  # em.go:11
 ALPHA_LIMIT = 1e-7
@@ -37,11 +37,13 @@ ALPHA_CHANGE_LIMIT = 1e-2
 
 EM_BATCHED = Kernel(
     "em_batched", "groot_em_batched",
-    (P, P, P, P, P, P, I, I, I, I, I, P, P),
+    (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I64, I, I, P, P),
     source="groot_tpu_torch/csrc/em.cu",
     replaces="groot_tpu/em/em.py:159",
 )
 MAX_SMEM = 232_448  # the H100's dynamic shared memory per block, bytes
+MASK_LANES = 32     # path lanes of the kernel's mask route
+ECS_PER_THREAD = 1  # live ecs a thread of the kernel aims at (csrc/em.cu)
 
 
 def run_em_batched_torch(
@@ -95,15 +97,81 @@ def run_em_batched_torch(
     return it, alpha
 
 
-def _csr(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Row pointers (int64 [rows + 1]) and column ids (int32) of a boolean
-    [G, rows_per_graph, cols] mask, rows flattened over the graphs."""
-    G, R, _C = mask.shape
-    nz = mask.nonzero()  # row-major: (g, row, col), col ascending
-    per_row = torch.bincount(nz[:, 0] * R + nz[:, 1], minlength=G * R)
-    ptr_ = torch.zeros(G * R + 1, dtype=torch.int64, device=mask.device)
-    ptr_[1:] = torch.cumsum(per_row, 0)
-    return ptr_, nz[:, 2].to(torch.int32).contiguous()
+def em_layout(membership: torch.Tensor, counts: torch.Tensor,
+              n_paths: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The EM kernel's per-graph layout of a dense batch, built on its
+    device without a host round trip (csrc/em.cu reads it):
+    - order int64 [G, E]: the ec in each slot, the graph's live ecs (count
+      != 0 and some member path) first, in ec order; the rest after them;
+    - mask int32 [G, E]: the ec's member path lanes below 32 as bits (the
+      u32 value's bits), cnt float32 [G, E]: its count, both in slot order;
+    - n_live int32 [G]: live ecs; width int32 [G]: path lanes the graph
+      uses (its path count, or its highest member lane + 1 if larger; at
+      most P), so a graph of width <= 32 is whole in its masks.
+    An ec with count 0 adds 0.0 to every path sum and a lane at or past
+    n_paths keeps alpha 0, so the kernel drops neither's effect."""
+    G, E, Pn = membership.shape
+    dev = membership.device
+    member = membership != 0
+    lanes = torch.arange(Pn, device=dev)
+    top = torch.where(member.any(dim=1), lanes + 1, 0).amax(dim=1)
+    width = torch.maximum(n_paths.long(), top).clamp(max=Pn).to(torch.int32)
+    live = member.any(dim=2) & (counts != 0)
+    order = torch.sort((~live).to(torch.uint8), dim=1, stable=True).indices
+    lo = min(Pn, MASK_LANES)
+    bits = (member[:, :, :lo].long() << lanes[:lo]).sum(dim=2)
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return {
+        "order": order,
+        "mask": bits.to(torch.int32).gather(1, order).contiguous(),
+        "cnt": counts.gather(1, order).contiguous(),
+        "n_live": live.sum(dim=1).to(torch.int32),
+        "width": width,
+    }
+
+
+def _ptr_rows(per_row: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-graph local CSR offsets (int32 [G, R + 1]) of the row counts
+    [G, R], and each graph's segment start in the flat list (int64 [G])."""
+    G, R = per_row.shape
+    ptr_ = torch.zeros((G, R + 1), dtype=torch.int32, device=per_row.device)
+    ptr_[:, 1:] = torch.cumsum(per_row, dim=1)
+    base = torch.zeros(G, dtype=torch.int64, device=per_row.device)
+    base[1:] = torch.cumsum(ptr_[:, -1].long(), dim=0)[:-1]
+    return ptr_, base
+
+
+def em_csr(membership: torch.Tensor, layout: Dict[str, torch.Tensor]
+           ) -> Dict[str, torch.Tensor]:
+    """CSR of each graph's live ecs in the layout's slot order, for the
+    kernel's route of graphs wider than 32 lanes: ec_ptr int32 [G, E + 1]
+    and path_ptr int32 [G, P + 1] (local offsets into the graph's segment,
+    which starts at ec_base / path_base int64 [G]), ec_paths (path lanes,
+    ascending) and path_ecs (live slots, ascending), int32."""
+    G, E, Pn = membership.shape
+    order = layout["order"]
+    m = (membership != 0).gather(1, order[:, :, None].expand(G, E, Pn))
+    m &= (torch.arange(E, device=m.device) < layout["n_live"][:, None])[:, :, None]
+    ec_ptr, ec_base = _ptr_rows(m.sum(dim=2))
+    mt = m.transpose(1, 2)
+    path_ptr, path_base = _ptr_rows(mt.sum(dim=2))
+    return {
+        "ec_ptr": ec_ptr, "ec_base": ec_base,
+        "ec_paths": m.nonzero()[:, 2].to(torch.int32).contiguous(),
+        "path_ptr": path_ptr, "path_base": path_base,
+        "path_ecs": mt.nonzero()[:, 2].to(torch.int32).contiguous(),
+    }
+
+
+def em_launch_shape(E: int, Pn: int) -> Tuple[int, int]:
+    """(threads a block wanted, NP: the mask route's path lanes, 8, 16 or
+    32) for a batch of E ecs and Pn path lanes: a thread for ECS_PER_THREAD
+    live ecs, and one a path when paths are wider than masks. The kernel
+    lowers the count to what keeps all the batch's blocks resident."""
+    want = max(-(-E // ECS_PER_THREAD), Pn if Pn > MASK_LANES else 0)
+    threads = min(max(-(-want // 32) * 32, 32), 1024)
+    NP = 8 if Pn <= 8 else (16 if Pn <= 16 else MASK_LANES)
+    return threads, NP
 
 
 def em_batched(
@@ -111,8 +179,9 @@ def em_batched(
     min_iterations: int, max_iterations: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The batched EM (see run_em_batched_torch). A CPU tensor takes the
-    plain version; a CUDA tensor launches the EM kernel on the membership
-    in CSR form (ec -> paths and path -> ecs), or raises."""
+    plain version; a CUDA tensor launches the EM kernel on the batch's
+    em_layout (and em_csr when a graph is wider than 32 path lanes), or
+    raises."""
     if membership.dtype != torch.float32 or membership.dim() != 3:
         raise TypeError("membership must be float32 [G, E, P]")
     G, E, Pn = membership.shape
@@ -133,18 +202,37 @@ def em_batched(
     alpha = torch.empty((G, Pn), dtype=torch.float32, device=dev)
     if G == 0:
         return it, alpha
-    member = membership != 0
-    if not bool((membership[member] == 1).all()):
+    if Pn < 1:
+        raise ValueError("an EM batch needs a path lane")
+    bad = ((membership != 0) & (membership != 1)).any()
+    lay = em_layout(membership, counts, n_paths)
+    words = 2 * E + 4 * 32 * 32  # the mask route: masks, counts, warp sums
+    if Pn > MASK_LANES:
+        csr = em_csr(membership, lay)
+        wide = lay["width"] > MASK_LANES
+        nl, wd = lay["n_live"].long(), lay["width"].long()
+        nnz = csr["ec_ptr"].gather(1, nl[:, None])[:, 0].long()
+        least = torch.where(wide, 2 * nl + 2 * wd, 0).max()
+        full = torch.where(wide, 3 * nl + 3 * wd + 2 + 2 * nnz, 0)
+        fits = torch.where(full <= MAX_SMEM // 4, full, 0).max()
+        bad, least, fits = torch.stack([bad.long(), least, fits]).tolist()
+        words = max(words, least, fits)
+        csr_ptrs = [ptr(csr[k]) for k in ("ec_ptr", "ec_base", "ec_paths",
+                                          "path_ptr", "path_base", "path_ecs")]
+    else:  # every graph fits the mask route: no CSR (null pointers)
+        csr_ptrs = [None] * 6
+        bad = bool(bad)
+    if bad:
         raise ValueError("membership must be 0/1")
-    smem = 4 * (2 * Pn + 2 * E)
-    if smem > MAX_SMEM:
-        raise ValueError(f"EM batch E={E} P={Pn} needs {smem} bytes of shared memory")
-    ec_ptr, ec_paths = _csr(member)
-    path_ptr, path_ecs = _csr(member.transpose(1, 2))
-    counts, n_paths = counts.contiguous(), n_paths.contiguous()
+    if 4 * words > MAX_SMEM:
+        raise ValueError(f"EM batch E={E} P={Pn} needs {4 * words} bytes of "
+                         "shared memory")
+    threads, NP = em_launch_shape(E, Pn)
+    n_paths = n_paths.contiguous()
     EM_BATCHED.launch(
-        dev, ptr(ec_ptr), ptr(ec_paths), ptr(path_ptr), ptr(path_ecs),
-        ptr(counts), ptr(n_paths), G, E, Pn, min_iterations, max_iterations,
+        dev, ptr(lay["mask"]), ptr(lay["cnt"]), ptr(lay["n_live"]),
+        ptr(lay["width"]), ptr(n_paths), *csr_ptrs,
+        G, E, Pn, NP, threads, words, min_iterations, max_iterations,
         ptr(it), ptr(alpha),
     )
     return it, alpha

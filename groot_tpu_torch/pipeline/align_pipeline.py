@@ -481,7 +481,8 @@ def run_align(
         aligner, tables = _make_aligner(engine, info, dev, references)
     acc = WeightAccumulator(tables) if tables is not None else None
     # the hash engine sketches with the native runtime (slot-0
-    # prescreened), as the reference does; the others sketch on `device`
+    # prescreened), as the reference does; the others sketch on `device`.
+    # GROOT_DEVICE_QUERY=1 queries on `device` whatever the engine.
     sketch_dev = None if engine == "hash" else dev
 
     # fast path: plain/gzip FASTQ files through the native scanner; FASTA or
@@ -502,7 +503,7 @@ def run_align(
         # device engine: sketch + query + hit sort run on the ingest
         # workers, so the main thread only submits and fetches
         batches = _map_hits(
-            batches, info, k, s, t, tables, batch_size, sketch_dev
+            batches, info, k, s, t, tables, batch_size, sketch_dev, dev
         )
     batches = _prefetch(batches, depth=2)
 
@@ -526,12 +527,12 @@ def run_align(
     elif use_pool:
         raw_count, length_total = _run_align_pooled(
             info, batches, aligner, bam_writer, stats, k, s, t, tables,
-            batch_size, t_start,
+            batch_size, t_start, dev,
         )
     else:
         raw_count, length_total = _run_align_sequential(
             info, batches, aligner, bam_writer, stats, k, s, t, tables,
-            acc, batch_size, t_start, sketch_dev,
+            acc, batch_size, t_start, sketch_dev, dev,
         )
 
     if acc is not None:
@@ -685,7 +686,7 @@ def _run_align_device(
 
 def _run_align_sequential(
     info, batches, aligner, bam_writer, stats, k, s, t, tables, acc,
-    batch_size, t_start, sketch_dev,
+    batch_size, t_start, sketch_dev, query_dev,
 ) -> Tuple[int, int]:
     """One batch at a time on the calling thread: the `host` and `cascade`
     engines, the `hash` engine without the native runtime, and --noAlign
@@ -704,7 +705,7 @@ def _run_align_sequential(
             _pad_batch(batch, batch_size, k)
         nxt = _process_batch(
             info, batch, aligner, bam_writer, stats, k, s, t, tables, acc,
-            sketch_dev,
+            sketch_dev, query_dev,
         )
         if pending is not None:
             aligner.collect_pairs(*pending, acc, bam_writer, stats)
@@ -753,7 +754,7 @@ class _RecSink:
 
 def _run_align_pooled(
     info, batches, aligner, bam_writer, stats, k, s, t, tables,
-    batch_size, t_start,
+    batch_size, t_start, query_dev,
 ) -> Tuple[int, int]:
     """Two-worker batch pipeline for the hash-join aligner: the native
     sketch/query/join/cascade/emit calls release the GIL, so two batches
@@ -776,7 +777,8 @@ def _run_align_pooled(
             accs[tid] = acc = WeightAccumulator(tables)
         st = AlignStats()
         sink = _RecSink() if bam_writer is not None else None
-        _process_batch(info, batch, aligner, sink, st, k, s, t, tables, acc)
+        _process_batch(info, batch, aligner, sink, st, k, s, t, tables, acc,
+                       query_dev=query_dev)
         return st, sink
 
     raw_count = 0
@@ -843,12 +845,14 @@ def _prescreen_for(info, batch, kmer_counts, t):
     return None
 
 
-def _sketch_query(info, batch, kmer_counts, k, s, t, sketch_dev):
+def _sketch_query(info, batch, kmer_counts, k, s, t, sketch_dev,
+                  query_dev="cpu"):
     """Sketch a padded batch and query the index -> (rows, wins).
     sketch_dev None: native host sketch with the slot-0 prescreen (numpy
     golden without the runtime library); else the KHF-sketch kernel (or
     its plain version on the CPU) on that device, whose full sketches are
-    queried with prescreened=False."""
+    queried with prescreened=False. `query_dev`, the command's device, is
+    where GROOT_DEVICE_QUERY=1 runs the query of a host-sketched batch."""
     if sketch_dev is not None:
         q64 = sketch_reads_u64(batch.codes, batch.lengths, k, s, sketch_dev)
         return info.db.query_batch_np(
@@ -860,18 +864,23 @@ def _sketch_query(info, batch, kmer_counts, k, s, t, sketch_dev):
         prescreen = None
         q64 = nthash.khf_sketch_np_batch(batch.codes, batch.lengths, k, s)
     return info.db.query_batch_np(
-        q64, kmer_counts, t, prescreened=prescreen is not None, device="cpu"
+        q64, kmer_counts, t, prescreened=prescreen is not None,
+        device=query_dev,
     )
 
 
-def _compute_hits(info, batch, kmer_counts, k, s, t, tables, sketch_dev):
+def _compute_hits(info, batch, kmer_counts, k, s, t, tables, sketch_dev,
+                  query_dev="cpu"):
     """sketch -> LSH query -> sorted hit list for one padded batch."""
-    rows, wins = _sketch_query(info, batch, kmer_counts, k, s, t, sketch_dev)
+    rows, wins = _sketch_query(
+        info, batch, kmer_counts, k, s, t, sketch_dev, query_dev
+    )
     keep = rows < batch.n_valid
     return sort_hits(tables, rows[keep], wins[keep])
 
 
-def _map_hits(batches, info, k, s, t, tables, batch_size, sketch_dev):
+def _map_hits(batches, info, k, s, t, tables, batch_size, sketch_dev,
+              query_dev):
     """Ingest-side stage for the async device engine: pad each batch to
     the pipeline shape and attach its hit list, so the main thread only
     runs the cascade submit/fetch. The per-batch prep (pad + sketch + LSH
@@ -886,7 +895,8 @@ def _map_hits(batches, info, k, s, t, tables, batch_size, sketch_dev):
         kmer_counts = (batch.lengths - k + 1).astype(np.int32)
         if not (batch.lengths[: batch.n_valid] < k).any():
             batch._hits = _compute_hits(
-                info, batch, kmer_counts, k, s, t, tables, sketch_dev
+                info, batch, kmer_counts, k, s, t, tables, sketch_dev,
+                query_dev,
             )
         return batch
 
@@ -906,7 +916,7 @@ def _map_hits(batches, info, k, s, t, tables, batch_size, sketch_dev):
 
 def _process_batch(
     info, batch, aligner, bam_writer, stats, k, s, t, tables=None, acc=None,
-    sketch_dev=None,
+    sketch_dev=None, query_dev="cpu",
 ) -> None:
     """Sketch, query and align one padded batch on the calling thread (the
     pooled and sequential loops; the device engine has its own). Returns
@@ -923,7 +933,7 @@ def _process_batch(
         # flat-hit path: per-hit bookkeeping is numpy (batch_host) plus the
         # hash-join cascade
         rows, wins, combo_start = _compute_hits(
-            info, batch, kmer_counts, k, s, t, tables, sketch_dev
+            info, batch, kmer_counts, k, s, t, tables, sketch_dev, query_dev
         )
         stats.received += batch.n_valid
         if len(rows):

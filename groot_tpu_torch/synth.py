@@ -296,3 +296,30 @@ def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
         np.array(probe_rank, np.int32),
     )
     return arrays, n_real
+
+
+def em_batch(seed: int, n_paths: Sequence[int], E: int, P: Optional[int] = None,
+             zero_frac: float = 0.1):
+    """A padded EM batch (em.em_batched's inputs) as numpy arrays: float32
+    0/1 membership [G, E, P], float32 counts [G, E], int32 n_paths [G]. Graph
+    g has n_paths[g] paths and a random number of ecs up to E; as in a
+    variation graph, about half its ecs hold every path and the rest a
+    random subset; a `zero_frac` share of the counts is 0 and the padding
+    ecs are empty with count 0. n_paths 0 makes an empty graph."""
+    rng = np.random.default_rng(seed)
+    G = len(n_paths)
+    P = max(max(n_paths, default=1), 1) if P is None else P
+    membership = np.zeros((G, E, P), np.float32)
+    counts = np.zeros((G, E), np.float32)
+    for g, n in enumerate(n_paths):
+        if n == 0 or E == 0:
+            continue
+        n_ec = int(rng.integers(max(E // 4, 1), E + 1))
+        full = rng.random(n_ec) < 0.5
+        for e in range(n_ec):
+            k = n if full[e] else int(rng.integers(1, n + 1))
+            membership[g, e, rng.choice(n, size=k, replace=False)] = 1.0
+        counts[g, :n_ec] = rng.integers(1, 300, size=n_ec) / rng.integers(
+            20, 200, size=n_ec)
+        counts[g, :n_ec][rng.random(n_ec) < zero_frac] = 0.0
+    return membership, counts, np.asarray(n_paths, np.int32)

@@ -16,6 +16,7 @@ import torch
 from groot_tpu.em import em as ref_em
 from groot_tpu.graph.grootgraph import GrootGraph
 from groot_tpu.io.msa2gfa import msa_to_gfa
+from groot_tpu_torch import synth
 from groot_tpu_torch.em import em
 
 
@@ -136,3 +137,72 @@ def test_process_em_paths_matches_reference():
         em.process_em_paths(p, 0.05, total)
         ref_em.process_em_paths(r, 0.05, total)
         assert p.paths == r.paths and p.abundances == r.abundances
+
+
+def _layout_batch(P):
+    """Graphs of 1..P paths (the widest first), one empty graph, E = 60."""
+    return [torch.from_numpy(x) for x in synth.em_batch(
+        P, [P, 1, max(P // 2, 1), 0, 3], 60, zero_frac=0.3)]
+
+
+@pytest.mark.parametrize("P", [1, 12, 32, 33, 100])
+def test_em_layout_decodes_to_membership(P):
+    """The kernel's layout holds the dense batch: each graph's live ecs
+    (count != 0, some path) first in ec order, their masks decode to their
+    membership lanes below 32 and their counts are theirs; the width covers
+    every member lane and the path count."""
+    m, c, n = _layout_batch(P)
+    lay = em.em_layout(m, c, n)
+    G, E, _P = m.shape
+    live = (m != 0).any(dim=2) & (c != 0)
+    assert torch.equal(lay["n_live"], live.sum(dim=1).int())
+    lanes = torch.arange(min(P, 32))
+    for g in range(G):
+        order = lay["order"][g]
+        nl = int(lay["n_live"][g])
+        assert sorted(order.tolist()) == list(range(E))
+        assert order[:nl].tolist() == torch.nonzero(live[g])[:, 0].tolist()
+        bits = lay["mask"][g, :nl].long() & 0xFFFFFFFF
+        dec = ((bits[:, None] >> lanes) & 1).float()
+        assert torch.equal(dec, m[g, order[:nl], : len(lanes)])
+        assert torch.equal(lay["cnt"][g], c[g, order])
+        used = torch.nonzero(m[g].any(dim=0))[:, 0]
+        top = int(used.max()) + 1 if len(used) else 0
+        assert int(lay["width"][g]) == max(int(n[g]), top)
+
+
+@pytest.mark.parametrize("P", [33, 100])
+def test_em_csr_decodes_to_membership(P):
+    """The CSR of the wide route, both ways, decodes to the membership of
+    each graph's live ecs in slot order, paths and ecs ascending."""
+    m, c, n = _layout_batch(P)
+    lay = em.em_layout(m, c, n)
+    csr = em.em_csr(m, lay)
+    G, E, _P = m.shape
+    for g in range(G):
+        nl = int(lay["n_live"][g])
+        want = m[g, lay["order"][g, :nl]]
+        ep, pp = csr["ec_ptr"][g].long(), csr["path_ptr"][g].long()
+        eb, pb = int(csr["ec_base"][g]), int(csr["path_base"][g])
+        assert int(ep[nl]) == int(ep[-1]) == int(pp[-1]) == int(want.sum())
+        got = torch.zeros_like(want)
+        for e in range(nl):
+            lst = csr["ec_paths"][eb + ep[e]: eb + ep[e + 1]].long()
+            assert torch.equal(lst, lst.sort().values)
+            got[e, lst] = 1.0
+        assert torch.equal(got, want)
+        got_t = torch.zeros_like(want)
+        for p in range(P):
+            lst = csr["path_ecs"][pb + pp[p]: pb + pp[p + 1]].long()
+            assert torch.equal(lst, lst.sort().values)
+            got_t[lst, p] = 1.0
+        assert torch.equal(got_t, want)
+
+
+@pytest.mark.parametrize("E,P,threads,NP", [
+    (675, 6, 704, 8),     # the haplotype batch of chip_smoke
+    (1, 1, 32, 8), (4000, 12, 1024, 16), (9000, 32, 1024, 32),
+    (10, 100, 128, 32), (50, 2000, 1024, 32), (16, 9, 32, 16),
+])
+def test_em_launch_shape(E, P, threads, NP):
+    assert em.em_launch_shape(E, P) == (threads, NP)

@@ -229,6 +229,115 @@ def test_phase_a_kernels_match_plain(cuda, tmp_path):
     assert ((got & 0xFF) < 255).sum() > 10
 
 
+def _edge_rows(al, n_reads: int, L: int, rng):
+    """Seed-scan rows of every shape on each of the aligner's path rows:
+    seeds from before the path's start (base < 0) to past its end, so
+    overhangs of every length up to KA = 192 on terminal-free paths and path
+    remainders shorter than the read; on the last path, rows whose words lie
+    past the end of the flat table; stage-1 bounds from 0 to past D1; read
+    lengths from 1 (<= k) to L."""
+    parts = []
+    for prow in range(al.R):
+        plen = int(al.path_len[prow])
+        base = np.unique(np.concatenate(
+            [plen - np.arange(0, 200, 3), [plen + 3, -4, 0, plen // 2]]))
+        n = len(base)
+        parts.append(np.stack([
+            rng.integers(0, n_reads, n), np.full(n, prow), base,
+            rng.choice([0, 3, 40, 191, 250], n),
+            rng.choice([1, K - 1, K, K + 1, 100, L - 1, L], n),
+        ]))
+    return np.concatenate(parts, axis=1).astype(np.int32)
+
+
+def _scan_case(tmp_path, device, L: int):
+    """A seed-scan call at the main path's shapes (k = 31, D1 = 192, reads
+    up to L) on a small database whose alleles (140-420 bp) are partly
+    shorter than the reads: the rows of a batch of reads (half of them flush
+    with an allele's end) and _edge_rows. Returns (tables, PH, rows, kw)."""
+    clusters = synth.make_clusters(np.random.default_rng(L), 5, alleles=(2, 4),
+                                   length=(140, 420), max_div=0.03)
+    synth.write_msa_dir(clusters, str(tmp_path / "msa"))
+    run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+                   index_dir=str(tmp_path / "idx")), str(tmp_path / "msa"), "cpu")
+    info = Info.load(str(tmp_path / "idx" / "groot.gg"))
+    index = ContainmentIndex.load(str(tmp_path / "idx" / "groot.lshe"))
+    info.attach_db(index)
+    tables = WindowTables(index, info.store)
+    al = dj.DeviceJoinAligner(info.store, bamio.build_references(info.store),
+                              device=device)
+    al.attach_tables(tables, index, K)
+    seqs, _which, _starts = synth.sample_reads(
+        np.random.default_rng(L + 1), synth.alleles_of(clusters), 400,
+        lengths=(L, L - 9, 60, 100), n_frac=0.05, tail_frac=0.5)
+    seqs[0] = (seqs[0] * 2)[:L]  # one read of L bases sets the batch width
+    batch = _make_batch([FastqRead(id=b"@t%d" % i, seq=s, qual=b"I" * len(s))
+                         for i, s in enumerate(seqs)])
+    kc = (batch.lengths - K + 1).astype(np.int32)
+    rows, wins, combo_start = _compute_hits(info, batch, kc, K, S, 0.99, tables,
+                                            device)
+    st = al.phase_a_rows(batch, rows, wins, combo_start)
+    codes, lens, rpow32, rinv32, _rows_t, sx = al.phase_a_inputs(batch, st)
+    assert codes.shape[1] == L
+    PH = dj.read_hashes(codes, lens, rpow32, rinv32, K, sx["WPH"])
+    extra = _edge_rows(al, len(codes), L, np.random.default_rng(L + 2))
+    rows_np = np.concatenate([st["rows_np"], extra], axis=1)
+    rows_t = torch.from_numpy(rows_np).to(device)
+    return al._dev, PH, rows_t, dict(D1=192, k=K, n_offs=sx["n_offs"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [160, 192])
+def test_seed_scan_kernel_row_shapes(cuda, tmp_path, L):
+    """The seed-scan kernel is bit-equal to its plain version, in one
+    launch, on every row shape: lb <= k, sb below and past D1, paths and
+    path remainders shorter than the read, rows at the end of the flat
+    table, overhangs up to KA = 192 on terminal-free paths, reads of up to
+    MAXL = 192 bases; and it finds stage-1, overhang and clip hits."""
+    tables, PH, rows_t, kw = _scan_case(tmp_path, cuda, L)
+    before = dj.SEED_SCAN.launches
+    got = dj.seed_scan(tables, *PH, *rows_t, **kw)
+    torch.cuda.synchronize()
+    assert dj.SEED_SCAN.launches == before + 1
+    want = dj.seed_scan_torch(tables, *PH, *rows_t, **kw)
+    assert torch.equal(got, want)
+    assert ((got & 0xFF) < 255).sum() > 10 and ((got >> 16) != 0).sum() > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,D1", [(31, 192), (31, 254), (5, 254), (2, 192)])
+def test_seed_scan_kernel_random_tables(cuda, k, D1):
+    """On random tables of 0/1 hashes (so chains, overhangs and clips hit
+    often) the kernel is bit-equal to its plain version: ladders of at most
+    the 8 anchors a lane holds (k = 31) and longer ones (k = 5, 2), whose
+    further words each lane reads after the first 8; D1 up to 254, so rows
+    of up to 8 passes of a warp's lanes."""
+    rng = np.random.default_rng(k * 1000 + D1)
+    R, U, L, Nr = 40, 300, 192, 4000
+    plen = rng.integers(50, 600, R)
+    start = np.concatenate([[0], np.cumsum(plen)[:-1]])
+    dev = {
+        "ah32": rng.integers(0, 2, int(plen.sum()) + 7), "pe2": rng.integers(0, 2, (R, dj.KA)),
+        "ph_start": start, "path_len": plen, "tfree": rng.random(R) < 0.7, "rinv1": 1,
+    }
+    tables = dj._tables_to(dev, cuda)
+    WPH, Lh = dj.KA + 2, L + 1 - k
+    PH = [torch.from_numpy(x.astype(np.int32)).to(cuda) for x in (
+        rng.integers(0, 3, (U, WPH)), rng.integers(0, 3, (U, WPH)),
+        rng.integers(0, 2, (U, Lh)), rng.integers(0, 2, (U, Lh)))]
+    prow = rng.integers(0, R, Nr)
+    rows = np.stack([rng.integers(0, U, Nr), prow,
+                     rng.integers(-5, plen[prow] + 6), rng.integers(0, 300, Nr),
+                     rng.integers(1, L + 1, Nr)]).astype(np.int32)
+    rows_t = torch.from_numpy(rows).to(cuda)
+    kw = dict(D1=D1, k=k, n_offs=len(dj._offsets(L, k)))
+    got = dj.seed_scan(tables, *PH, *rows_t, **kw)
+    want = dj.seed_scan_torch(tables, *PH, *rows_t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ((got & 0xFF) < 255).sum() > 100 and ((got >> 16) != 0).sum() > 100
+
+
 def _window_rows(rng, L: int):
     """Ragged rows with Ns up to L bases, rows whose window counts sit on
     the kernel's 1,024-window tile edges, and rows with constant and copied
@@ -313,6 +422,40 @@ def test_em_kernel_matches_plain(cuda, iters):
     it_p, alpha_p = em.run_em_batched_torch(*args, *iters)
     assert torch.equal(it, it_p)
     assert bool((it > iters[0]).all())
+    tol = 1e-5 * alpha_p.abs().clamp(min=1.0)
+    assert bool(((alpha - alpha_p).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_paths,E,iters", [
+    ([1] * 8, 300, (50, 10000)),              # one path: alpha 1 at once
+    (list(range(1, 13)) * 3, 4000, (50, 10000)),  # masks, 32 warps a graph
+    ([32, 17, 5, 32, 2], 2000, (50, 10000)),  # the widest mask route
+    ([33, 12, 1, 32, 40, 0], 500, (50, 10000)),  # both routes in one batch
+    ([100, 40, 3, 64], 1500, (50, 10000)),    # CSR, group widths 8 and 16
+    ([12] * 6, 300, (10, 40)),                # graphs hit max_iterations
+    ([5], 4000, (50, 10000)),                 # G = 1
+])
+def test_em_kernel_routes_match_plain(cuda, n_paths, E, iters):
+    """Both routes of the EM kernel (masks up to 32 path lanes, CSR past
+    them) give the plain version's iteration counts and its alphas within
+    1e-5 of max(1, |alpha|), in one launch; the first graph of a batch of
+    several has every count 0, and an empty graph (no paths) rides along."""
+    m, c, n = synth.em_batch(len(n_paths) * 7 + E, n_paths, E)
+    if len(n_paths) > 1:
+        c[0] = 0.0
+    args = [torch.from_numpy(x).to(cuda) for x in (m, c, n)]
+    width = em.em_layout(*args)["width"]
+    before = em.EM_BATCHED.launches
+    it, alpha = em.em_batched(*args, *iters)
+    torch.cuda.synchronize()
+    assert em.EM_BATCHED.launches == before + 1
+    it_p, alpha_p = em.run_em_batched_torch(*args, *iters)
+    assert torch.equal(it, it_p)
+    if iters[1] == 40:
+        assert bool((it[1:] == 40).all())
+    if max(n_paths) > 32:
+        assert bool((width > 32).any()) and bool((width <= 32).any())
     tol = 1e-5 * alpha_p.abs().clamp(min=1.0)
     assert bool(((alpha - alpha_p).abs() <= tol).all())
 

@@ -215,6 +215,39 @@ def test_cli_device_cuda_raises_without_gpu(data, tmp_path):
                   "-g", str(tmp_path / "g"), "--device", "cuda"])
 
 
+@pytest.mark.parametrize("pooled", [True, False])
+def test_hash_engine_device_query_runs_on_the_command_device(
+        data, pooled, monkeypatch):
+    """GROOT_ENGINE=hash GROOT_DEVICE_QUERY=1: the capped device query of
+    the host-sketched batches gets the align command's device (a CUDA
+    device here, stood in for by the CPU query), in the pooled and the
+    sequential loop, as the reference's query forces its device kernel."""
+    tmp, fq = data
+    seen = []
+    real = ContainmentIndex._query_batch_np_dev
+
+    def spy(self, q64, sizes, t, device):
+        seen.append(torch.device(device))
+        return real(self, q64, sizes, t, "cpu")
+
+    monkeypatch.setattr(ContainmentIndex, "_query_batch_np_dev", spy)
+    monkeypatch.setattr(align_pipeline, "resolve_device", torch.device)
+    if not pooled:
+        monkeypatch.setattr(align_pipeline.native, "available", lambda: False)
+    monkeypatch.setenv("GROOT_ENGINE", "hash")
+    monkeypatch.setenv("GROOT_DEVICE_QUERY", "1")
+    info = Info.load(str(tmp / "port" / "groot.gg"))
+    info.attach_db(ContainmentIndex.load(str(tmp / "port" / "groot.lshe")))
+    info.index_dir = str(tmp / "port")
+    info.containment_threshold = 0.99
+    info.sketch = AlignCmd(min_kmer_coverage=MIN_COV)
+    stats = align_pipeline.run_align(info, [fq], bam_writer=None,
+                                     batch_size=128, device="cuda")
+    assert stats.mapped > 0
+    assert len(seen) == -(-stats.received // 128)
+    assert all(d.type == "cuda" for d in seen), seen
+
+
 @pytest.mark.parametrize("engine,exc", [("bogus", ValueError)])
 def test_unported_engines_raise(engine, exc, monkeypatch):
     monkeypatch.setenv("GROOT_ENGINE", engine)
