@@ -56,19 +56,20 @@ Phases, any failure exits non-zero:
      same run, where a launch the trace lacks must be one of the kernel
      records the profiler lost (a runtime launch call with no record).
 With --baseline-csrc DIR (an earlier groot_tpu_torch/csrc, e.g. written
-out with git show), DIR's khf_sketch, read_hash, seed_scan and em_batched
-kernels are built into their own library and timed beside this version's
-at the same inputs (equal outputs required; for em_batched equal iteration
-counts and alphas within 1e-5 of max(1, |alpha|), as summation orders may
-differ; `baseline_ms`, `baseline_device_ms`).
+out with git show), DIR's khf_sketch, read_hash, seed_scan, window_sketch,
+em_batched and lsh_query kernels are built into their own library and timed
+beside this version's at the same inputs (equal outputs required; for
+em_batched equal iteration counts and alphas within 1e-5 of max(1, |alpha|),
+as summation orders may differ; for lsh_query contain within 1 ulp;
+`baseline_ms`, `baseline_device_ms`, and for lsh_query at t = 0.97 the
+banded mode's `banded_timed_device_ms`, `banded_baseline_device_ms`).
 Every kernel must launch in the run of its command or path (4, 5, 5b, 6 or
 8), counted from 0 just before it. The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launches, errors,
 times (`ms`: CUDA events over back-to-back calls, the Python wrapper
 included; `device_ms`: the device time a launch in phase 10's traces, all
 the entry point's device functions summed; `timed_device_ms`: the same at
-the inputs `ms` is timed on, for `khf_sketch`, `read_hash`, `seed_scan`,
-`em_batched`, `weight_scatter` and `pair_cascade`, else null), the least time the card
+the inputs `ms` is timed on, for every kernel), the least time the card
 could take for the same work (`bound_ms`: the larger of the bytes the
 function must move over 3.35 TB/s and its operations over 67 T op/s, the
 H100's non-tensor rate; `bound_by` says which) and, where one PyTorch call
@@ -260,7 +261,7 @@ def sketch_parity(seed: int, dev, base=None) -> dict:
              "timed_device_ms": _device_ms(lambda: khf_sketch(c, v, k, s), "khf_sketch")
              if dev.type == "cuda" else None}
         if base is not None:
-            m.update(base.timed("khf_sketch", lambda: base.khf_sketch(c, v, k, s),
+            m.update(base.timed("khf_sketch", lambda: khf_sketch(c, v, k, s),
                                 got, dev))
         _say(f"khf_sketch k{k} s{s} L{L} B{B}: equal to plain/native/numpy; "
              + _times_text(m))
@@ -285,8 +286,11 @@ def _times_text(m: dict) -> str:
 
 class _Baseline:
     """An earlier version of the kernels (its csrc directory, built into its
-    own library) called with this version's wrappers' arguments, for a
-    side-by-side timing in one run. Its launches are not counted."""
+    own library), timed beside this version's at the same inputs in one
+    run. A kernel whose C signature is unchanged runs through this
+    version's wrapper with the earlier entry point swapped in; one whose
+    signature changed has its earlier wrapper here (`window_sketch`).
+    Launches made here are not part of any main-path count."""
 
     def __init__(self, csrc: str):
         import ctypes
@@ -298,89 +302,80 @@ class _Baseline:
         t0 = time.time()
         self.lib = ctypes.CDLL(str(_build.build(src, src / "_build")))
         _say(f"baseline kernels from {csrc}: built in {time.time() - t0:.1f}s")
-        self._fns = {}
 
-    # C signatures of the earlier kernels that differ from this version's:
-    # em_batched before its redesign took the membership as CSR both ways
-    _ARGTYPES = {"em_batched": ("P",) * 6 + ("I",) * 5 + ("P", "P")}
+    # the earlier C signatures, device functions and wrappers of kernels
+    # redesigned since: window_sketch took row offsets, a window scratch,
+    # flags and tile counts, and ran three device functions
+    _ARGTYPES = {"window_sketch": ("P",) * 3 + ("I",) * 6 + ("I64",) + ("P",) * 7}
+    _FUNCS = {"window_sketch": ("window_sketch_kernel", "window_scan_kernel",
+                                "window_compact_kernel")}
 
-    def _call(self, name: str, dev, *args) -> None:
+    def _entry(self, name: str, types=None):
         import ctypes
 
         from groot_tpu_torch import _build
 
-        fn = self._fns.get(name)
-        if fn is None:
-            kern = _build.KERNELS[name]
-            fn = getattr(self.lib, kern.symbol)
-            fn.restype = ctypes.c_int
-            types = self._ARGTYPES.get(name)
-            types = (kern.argtypes if types is None
-                     else [getattr(_build, t) for t in types])
-            fn.argtypes = list(types) + [ctypes.c_void_p]
-            self._fns[name] = fn
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-        _check(err == 0, f"baseline {name} launch failed ({err})")
+        kern = _build.KERNELS[name]
+        fn = getattr(self.lib, kern.symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(types or kern.argtypes) + [ctypes.c_void_p]
+        return fn
 
-    def khf_sketch(self, codes, valid_len, k: int, s: int):
-        B, L = codes.shape
-        out = torch.empty((B, s), dtype=torch.int64, device=codes.device)
-        self._call("khf_sketch", codes.device, codes.data_ptr(),
-                   valid_len.data_ptr(), out.data_ptr(), B, L, k, s)
-        return out
-
-    def read_hashes(self, codes, lengths, rpow32, rinv32, k: int, WPH: int):
-        B, L = codes.shape
-        na = L + 1 - k
-        out = [torch.empty(shape, dtype=torch.int32, device=codes.device)
-               for shape in ((B, WPH), (B, WPH), (B, na), (B, na))]
-        self._call("read_hash", codes.device, codes.data_ptr(), lengths.data_ptr(),
-                   rpow32.data_ptr(), rinv32.data_ptr(),
-                   *(t.data_ptr() for t in out), B, L, k, WPH)
-        return tuple(out)
-
-    def seed_scan(self, tables, PHf, PHr, AHf, AHr, *rows, D1: int, k: int,
-                  n_offs: int):
+    @contextlib.contextmanager
+    def _swapped(self, name: str):
+        """This version's wrapper of `name` launching the earlier kernel."""
         from groot_tpu_torch import _build
 
-        ah = tables["ah32"]
-        out = torch.empty(rows[0].shape[0], dtype=torch.int32, device=ah.device)
-        p = _build.ptr
-        self._call("seed_scan", ah.device, p(ah), ah.shape[0], p(tables["pe2"]),
-                   p(tables["path_len"]), p(tables["ph_start"]),
-                   p(tables["tfree"]), int(tables["rinv1"]) & 0xFFFFFFFF,
-                   p(PHf), p(PHr), PHf.shape[1], p(AHf), p(AHr), AHf.shape[1],
-                   *(p(t) for t in rows), rows[0].shape[0], D1, k, n_offs,
-                   p(out))
-        return out
+        kern = _build.KERNELS[name]
+        saved, kern._fn = kern._fn, self._entry(name)
+        try:
+            yield
+        finally:
+            kern._fn = saved
 
-    def em_batched(self, membership, counts, n_paths, min_it: int, max_it: int):
-        """The earlier EM kernel, fed the CSR (ec -> paths, path -> ecs) of
-        the membership its wrapper built."""
-        def csr(mask):
-            G, R, _C = mask.shape
-            nz = mask.nonzero()
-            per_row = torch.bincount(nz[:, 0] * R + nz[:, 1], minlength=G * R)
-            ptr_ = torch.zeros(G * R + 1, dtype=torch.int64, device=mask.device)
-            ptr_[1:] = torch.cumsum(per_row, 0)
-            return ptr_, nz[:, 2].to(torch.int32).contiguous()
+    def window_sketch(self, codes, lens, k: int, s: int, w: int):
+        """The earlier window kernel (1,024-window tiles, a slot-major
+        scratch of every window, then a compaction), with its wrapper."""
+        from groot_tpu_torch import _build
 
-        G, E, Pn = membership.shape
-        member = membership != 0
-        ec_ptr, ec_paths = csr(member)
-        path_ptr, path_ecs = csr(member.transpose(1, 2))
-        it = torch.empty(G, dtype=torch.int32, device=membership.device)
-        alpha = torch.empty((G, Pn), dtype=torch.float32, device=membership.device)
-        self._call("em_batched", membership.device,
-                   *(t.data_ptr() for t in (ec_ptr, ec_paths, path_ptr, path_ecs,
-                                            counts, n_paths)),
-                   G, E, Pn, min_it, max_it, it.data_ptr(), alpha.data_ptr())
-        return it, alpha
+        dev = codes.device
+        R, L = codes.shape
+        nw_row = (lens.long() - w + 1).clamp(min=0)
+        cap = int(nw_row.sum())
+        row_base = torch.cumsum(nw_row, 0) - nw_row
+        n_tiles = -(-int(nw_row.max()) // 1024)
+        sk_scratch = torch.empty((s, cap), dtype=torch.int64, device=dev)
+        flags = torch.empty(cap, dtype=torch.uint8, device=dev)
+        tile_cnt = torch.empty(R * n_tiles, dtype=torch.int32, device=dev)
+        tile_off = torch.empty(R * n_tiles + 1, dtype=torch.int64, device=dev)
+        out_row = torch.empty(cap, dtype=torch.int32, device=dev)
+        out_col = torch.empty(cap, dtype=torch.int32, device=dev)
+        out_sk = torch.empty((cap, s), dtype=torch.int64, device=dev)
+        fn = self._entry("window_sketch",
+                         [getattr(_build, t) for t in self._ARGTYPES["window_sketch"]])
+        err = fn(codes.data_ptr(), lens.data_ptr(), row_base.data_ptr(), R, L, k,
+                 s, w, n_tiles, cap,
+                 *(t.data_ptr() for t in (sk_scratch, flags, tile_cnt, tile_off,
+                                          out_row, out_col, out_sk)),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _check(err == 0, f"baseline window_sketch launch failed ({err})")
+        M = int(tile_off[-1])
+        row_off = tile_off[::n_tiles]
+        return out_row[:M], out_col[:M], out_sk[:M], row_off[1:] - row_off[:-1]
 
     def timed(self, name: str, fn, want, dev, same=None) -> dict:
-        """The baseline's outputs must equal `want` (this version's), or
-        pass `same(got, want)` where summation orders may differ; then its
+        """`fn` calls this version's wrapper of kernel `name` (or, for a
+        kernel in _ARGTYPES, the earlier wrapper here); run with the earlier
+        kernel its outputs must equal `want` (this version's), or pass
+        `same(got, want)` where summation orders may differ; then its
         CUDA-event and device times at the same inputs."""
+        if name not in self._ARGTYPES:
+            plain_fn = fn
+
+            def fn():
+                with self._swapped(name):
+                    return plain_fn()
+
         got = fn()
         _sync(dev)
         if same is None:
@@ -390,7 +385,7 @@ class _Baseline:
             ok = same(got, want)
         _check(ok, f"baseline {name} != this version's kernel")
         return {"baseline_ms": _time_ms(fn, dev),
-                "baseline_device_ms": _device_ms(fn, name)}
+                "baseline_device_ms": _device_ms(fn, name, self._FUNCS.get(name))}
 
 
 def make_data(work: str, seed: int) -> str:
@@ -455,9 +450,10 @@ def build_index(work: str, dev) -> dict:
     return launches
 
 
-def window_parity(work: str, dev) -> dict:
+def window_parity(work: str, dev, base=None) -> dict:
     """The window-sketch kernel vs its plain version and the native runtime
-    on every path row of the database, timed."""
+    on every path row of the database, timed (with `base`, the earlier
+    kernel timed beside it)."""
     from groot_tpu_torch.config import Info
     from groot_tpu_torch.io import native
 
@@ -484,19 +480,28 @@ def window_parity(work: str, dev) -> dict:
     want = native.window_sketch(codes, lens, K, S, W)
     for name, a, b in zip(("rows", "cols", "sketches", "row counts"), got_np, want):
         _check(np.array_equal(a, b), f"window_sketch {name}: kernel != native")
-    ms = _time_ms(lambda: window.window_run_starts(c, v, K, S, W), dev)
-    pms = _time_ms(lambda: window.window_run_starts_torch(c, v, K, S, W), dev, 5)
+    fn = lambda: window.window_run_starts(c, v, K, S, W)  # noqa: E731
+    m = {"max_abs_err": err, "ms": _time_ms(fn, dev),
+         "plain_ms": _time_ms(lambda: window.window_run_starts_torch(c, v, K, S, W),
+                              dev, 5),
+         "timed_device_ms": _device_ms(fn, "window_sketch")
+         if dev.type == "cuda" else None}
+    if base is not None:
+        m.update(base.timed("window_sketch",
+                            lambda: base.window_sketch(c, v, K, S, W), got, dev))
     nw = int((lens - W + 1).clip(min=0).sum())
-    # bytes: the rows' bases (not the padding) and lengths in, the run
-    # starts (row, column, u64 sketch) out; ops: per k-mer the rolling hash
-    # and S slots, per window and slot ~2 for the sliding minimum
+    # bytes: the rows' bases (not the padding) and lengths in, each run
+    # start's row, column and S u64 minima out; ops: per k-mer the rolling
+    # hash and S slots, per window and slot ~2 for the sliding minimum
     n_kmer = int(np.clip(lens.astype(np.int64) - K + 1, 0, None).sum())
-    bound = _bound(int(lens.sum()) + lens.nbytes + len(got_np[0]) * 16,
+    bound = _bound(int(lens.sum()) + lens.nbytes + len(got_np[0]) * (8 + 8 * S),
                    n_kmer * (8 + 4 * S) + nw * S * 2)
+    tw = window.tile_width(K, S, W, dev) if dev.type == "cuda" else "-"
     _say(f"window_sketch on {len(lens)} path rows (<= {codes.shape[1]} bp, "
-         f"{nw} windows, {len(got_np[0])} run starts): equal to plain/native; "
-         f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bound}
+         f"{nw} windows, {len(got_np[0])} run starts, tiles of {tw} "
+         "windows): equal to plain/native; "
+         + _times_text(m) + f"; bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
+    return {**m, **bound}
 
 
 def phase_a_parity(work: str, fq: str, dev, base=None) -> dict:
@@ -572,7 +577,7 @@ def phase_a_parity(work: str, fq: str, dev, base=None) -> dict:
           **_bound(int(ln.sum()) + _nbytes(lens) + 8 * int(ln.max()) + 4 * n_hash,
                    8 * int(ln.sum()))}
     if base is not None:
-        rh.update(base.timed("read_hash", lambda: base.read_hashes(*args), PH, dev))
+        rh.update(base.timed("read_hash", lambda: dj.read_hashes(*args), PH, dev))
     # seed_scan: the rows in, one word a row out, and at least one anchor
     # chain (n_offs + 1 words) per row and strand from the path table and
     # per read of the rows and strand from its anchor hashes
@@ -590,7 +595,7 @@ def phase_a_parity(work: str, fq: str, dev, base=None) -> dict:
                    + 4 * 2 * n_read * (sx["n_offs"] + 1), chain)}
     if base is not None:
         ss.update(base.timed("seed_scan",
-                             lambda: base.seed_scan(al._dev, *PH, *rows_t, **kw),
+                             lambda: dj.seed_scan(al._dev, *PH, *rows_t, **kw),
                              out, dev))
     _say(f"phase A on one batch: {len(codes)} mapped reads (L {codes.shape[1]}, "
          f"WPH {sx['WPH']}), {rows_t.shape[1]} rows ({hits} stage-1 hits, "
@@ -691,10 +696,11 @@ def _n_candidates(q, kc, _sketches, sorted_sigs, band_idx, *, K, M, qmax=None,
     return int(((cands >= 0) & (kc[:, None] > 0)).sum())
 
 
-def data_plane(work: str, fq: str, dev):
+def data_plane(work: str, fq: str, dev, base=None):
     """The fused align step over every read at t = 0.99 and 0.97, held to
     the host replay; the LSH-query and weight-scatter kernels against their
-    plain versions on the first batch; the GROOT_DEVICE_QUERY=1 route; the
+    plain versions on the first batch (with `base`, the earlier LSH-query
+    kernel timed beside this one); the GROOT_DEVICE_QUERY=1 route; the
     sharded step over [dev, dev]. Returns (launches, {kernel: metrics},
     a function that runs the step over the batches once, for the trace)."""
     from groot_tpu_torch.align.batch_host import WeightAccumulator, WindowTables
@@ -790,16 +796,18 @@ def data_plane(work: str, fq: str, dev):
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
         w_err = float((got[0] - want[0]).abs().max())
         # lsh_query: sketches and k-mer counts in, ids and containments
-        # out, the sketch row of each real candidate (a slot the band
-        # lookup fills, not the padding of the C slots) read once and two
-        # binary searches of the signature table a band; ops: the band mix,
-        # the searches and one compare a slot of a real candidate
+        # out, one lower-bound search of the u32 signatures a band (the
+        # upper bound is not needed: a slot holds an id when its signature
+        # equals the read's), and each real candidate's id and sketch row
+        # (a slot the band lookup fills, not the padding of the C slots)
+        # read once; ops: the band mix, the search and one compare a slot
+        # of a real candidate
         B, Cq = win.shape
         n_band, n_sig = int(qargs[3].shape[0]), int(qargs[3].shape[-1])
-        search = 2 * n_band * max(n_sig, 2).bit_length()
+        search = n_band * max(n_sig, 2).bit_length()
         n_cand = _n_candidates(*qargs, **qkw)
         q_bound = _bound(_nbytes(qargs[0], qargs[1], win, con)
-                         + (B * search + n_cand * S) * 8,
+                         + 4 * B * search + n_cand * (4 + 8 * S),
                          B * (8 * S + search) + n_cand * S)
         # weight_scatter: the hit table and k-mer counts in, each kept
         # pair's live node slots (id and coefficient; not the padding of
@@ -817,11 +825,14 @@ def data_plane(work: str, fq: str, dev):
                          + n_live * 8, 2 * n_live)
         idx, val = nodes[live].long(), vals[live]
         acc_w = torch.zeros(di.num_nodes, dtype=torch.float32, device=dev)
+        qfn = lambda: lshe.query_device(*qargs, **qkw)  # noqa: E731
         m = {
             "lsh_query": {
                 "max_abs_err": q_err,
-                "ms": _time_ms(lambda: lshe.query_device(*qargs, **qkw), dev),
+                "ms": _time_ms(qfn, dev),
                 "plain_ms": _time_ms(lambda: lshe.query_device_torch(*qargs, **qkw), dev, 5),
+                "timed_device_ms": _device_ms(qfn, "lsh_query")
+                if dev.type == "cuda" else None,
                 "library_ms": None, **q_bound},
             "weight_scatter": {
                 "max_abs_err": w_err,
@@ -833,10 +844,17 @@ def data_plane(work: str, fq: str, dev):
                 if dev.type == "cuda" else None,
                 **w_bound},
         }
+        if base is not None:
+            def same(got, want):  # ids equal, contain within 1 ulp
+                return torch.equal(got[0], want[0]) and _ulps(got[1], want[1]) <= 1
+
+            m["lsh_query"].update(base.timed(
+                "lsh_query", qfn, (win, con),
+                dev, same))
         _say(f"lsh_query t={t} ({'full' if full else 'banded'}, B={len(lens)}, C="
-             f"{win.shape[1]}): win_idx equal to plain, contain within {ulps} ulp "
-             f"(tolerance 1 ulp); kernel {m['lsh_query']['ms']:.4f} ms, plain "
-             f"{m['lsh_query']['plain_ms']:.4f} ms")
+             f"{win.shape[1]}, bound {q_bound['bound_ms']:.6f} ms): win_idx equal "
+             f"to plain, contain within {ulps} ulp (tolerance 1 ulp); "
+             + _times_text(m["lsh_query"]))
         _say(f"weight_scatter t={t} ({int((win >= 0).sum())} kept pairs, Cn="
              f"{di.win_nodes.shape[1]}): equal to plain (node weights rtol 1e-5, "
              f"max |d| {w_err:.3g}); kernel {m['weight_scatter']['ms']:.4f} ms "
@@ -849,14 +867,19 @@ def data_plane(work: str, fq: str, dev):
                 metrics[name] = m[name]
             else:
                 prev["max_abs_err"] = max(prev["max_abs_err"], m[name]["max_abs_err"])
+        # the banded mode's device times, beside the full mode's in its entry
+        if t == 0.97:
+            for key in ("timed_device_ms", "baseline_device_ms"):
+                if key in m["lsh_query"]:
+                    metrics["lsh_query"][f"banded_{key}"] = m["lsh_query"][key]
 
         # the sharded step over two shards of the one card
-        base = step(codes, lens)
+        one = step(codes, lens)
         two = pdi.make_sharded_align_step(di, t, devices=[dev, dev])(codes, lens)
         _sync(dev)
         for j, name in ((0, "win_idx"), (3, "graph_kmers"), (4, "mapped"), (5, "dropped")):
-            _check(torch.equal(two[j], base[j]), f"sharded step t={t}: {name} differs")
-        torch.testing.assert_close(two[2], base[2], rtol=1e-5, atol=0)
+            _check(torch.equal(two[j], one[j]), f"sharded step t={t}: {name} differs")
+        torch.testing.assert_close(two[2], one[2], rtol=1e-5, atol=0)
         _say(f"sharded step t={t} over [{dev}, {dev}] on {len(lens)} reads: "
              f"equal to the unsharded step")
         if t == 0.99:  # the step's time on one device and on two shards
@@ -928,8 +951,7 @@ KERNEL_FUNCS = {
     "khf_sketch": ("khf_sketch_kernel",),
     "read_hash": ("read_hash_kernel",),
     "seed_scan": ("seed_scan_kernel",),
-    "window_sketch": ("window_sketch_kernel", "window_scan_kernel",
-                      "window_compact_kernel"),
+    "window_sketch": ("window_sketch_kernel",),
     "em_batched": ("em_batched_kernel",),
     "lsh_query": ("lsh_query_kernel",),
     "weight_scatter": ("weight_count_kernel", "weight_pairs_kernel"),
@@ -937,13 +959,14 @@ KERNEL_FUNCS = {
 }
 
 
-def _kernel_times(dev_events) -> dict:
+def _kernel_times(dev_events, table=None) -> dict:
     """{kernel: (launches, device us)} from a trace's device events: the
-    device time of all the entry point's device functions, its launches
-    counted by its first one (every call of the entry point runs it)."""
+    device time of all the entry point's device functions (`table`, by
+    default KERNEL_FUNCS), its launches counted by its first one (every
+    call of the entry point runs it)."""
     per_kernel = {}
     for e in dev_events:
-        for name, funcs in KERNEL_FUNCS.items():
+        for name, funcs in (table or KERNEL_FUNCS).items():
             hit = [f for f in funcs if f in e.name]
             if hit:
                 n, us = per_kernel.get(name, (0, 0.0))
@@ -971,10 +994,11 @@ def _absorb() -> None:
     torch.cuda.synchronize()
 
 
-def _device_ms(fn, name: str, iters: int = 20):
-    """Device milliseconds a call of kernel `name` (its device functions
-    summed) over `iters` calls after warm-up, from a torch.profiler trace;
-    None when the trace holds none of them."""
+def _device_ms(fn, name: str, funcs=None, iters: int = 20):
+    """Device milliseconds a call of kernel `name` (its device functions,
+    `funcs` or KERNEL_FUNCS[name], summed) over `iters` calls after
+    warm-up, from a torch.profiler trace; None when the trace holds none
+    of them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -985,7 +1009,8 @@ def _device_ms(fn, name: str, iters: int = 20):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        n, us = _kernel_times(_device_events(prof)).get(name, (0, 0.0))
+        table = {name: funcs or KERNEL_FUNCS[name]}
+        n, us = _kernel_times(_device_events(prof), table).get(name, (0, 0.0))
         if n:
             return us / 1e3 / n
     return None
@@ -1414,7 +1439,7 @@ def haplotype_phase(work: str, dev, base=None):
                 ((got[1] - want[1]).abs()
                  <= 1e-5 * want[1].abs().clamp(min=1.0)).all())
 
-        m.update(base.timed("em_batched", lambda: base.em_batched(*args, mi, ma),
+        m.update(base.timed("em_batched", lambda: em.em_batched(*args, mi, ma),
                             (it, alpha), dev, same))
     G, E, Pn = arrays[0].shape
     lay = em.em_layout(*args)
@@ -1476,8 +1501,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--baseline-csrc", metavar="DIR",
                     help="an earlier version of groot_tpu_torch/csrc (e.g. from "
-                    "git show): its khf_sketch, read_hash, seed_scan and "
-                    "em_batched kernels are timed beside this version's")
+                    "git show): its khf_sketch, read_hash, seed_scan, "
+                    "window_sketch, em_batched and lsh_query kernels are timed "
+                    "beside this version's")
     args = ap.parse_args(argv)
     smi = preflight()
     dev = torch.device("cuda")
@@ -1488,7 +1514,7 @@ def main(argv=None) -> int:
     try:
         fq = make_data(work, args.seed)
         launches = build_index(work, dev)
-        kernels["window_sketch"] = window_parity(work, dev)
+        kernels["window_sketch"] = window_parity(work, dev, base)
         kernels.update(phase_a_parity(work, fq, dev, base))
         e2e_launches, hash_run = end_to_end(work, fq, dev)
         launches.update(e2e_launches)
@@ -1498,7 +1524,7 @@ def main(argv=None) -> int:
         em_launches, kernels["em_batched"] = haplotype_phase(work, dev, base)
         launches.update(em_launches)
         accuracy_phase(work)
-        plane_launches, plane_kernels, plane_fn = data_plane(work, fq, dev)
+        plane_launches, plane_kernels, plane_fn = data_plane(work, fq, dev, base)
         launches.update(plane_launches)
         kernels.update(plane_kernels)
         nproc_phase(work, fq)
@@ -1523,7 +1549,9 @@ def main(argv=None) -> int:
             "timed_device_ms": m.get("timed_device_ms"),
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
-            **{k: m[k] for k in ("baseline_ms", "baseline_device_ms") if k in m},
+            **{k: m[k] for k in ("baseline_ms", "baseline_device_ms",
+                                 "banded_timed_device_ms",
+                                 "banded_baseline_device_ms") if k in m},
         })
     _say(smi)
     _say(json.dumps({"kernels": rows}))

@@ -11,30 +11,37 @@
 // (groot_tpu/io/native.py): run starts in row-major order, columns
 // ascending within a row, so _merge_windows_soa runs unchanged.
 //
-// Design, three launches on one stream:
-//   1. window_sketch_kernel, one block per (row, tile of kTileW windows).
-//      The block stages the tile's bases (a halo of w-1 bases, plus one more
-//      window in front: the previous tile's last window) in shared memory,
-//      computes each k-mer's canonical hash once (nthash.cuh), and then per
-//      slot: the slot's hashes, the minimum over every aligned run of p
-//      k-mers (p the largest power of two <= m = w-k+1, by log2(p) doubling
-//      passes between two shared buffers), and each window's minimum as
-//      min(M_p[i], M_p[i+m-p]). A window differs from its predecessor when
-//      any slot does; the halo window makes the test at the tile's first
-//      window exact. Sketches go to a slot-major scratch [s, cap] of every
-//      valid window (coalesced stores), flags to [cap], and the tile's count
-//      of run starts to tile_cnt.
-//   2. window_scan_kernel, one block: exclusive prefix sum of the tile
-//      counts in row-major tile order -> each tile's first output slot, M.
-//   3. window_compact_kernel, one block per tile: a block-wide prefix sum
-//      over the tile's flags ranks its run starts; each goes to its slot.
+// Design: one launch, one block per tile of tw windows of a row (tw from
+// groot_window_tile_width, the widest tile that lets two blocks share an
+// SM); a row has ceil(windows / tw) tiles, and one without a window none.
+// A block takes its tile in row-major order from an atomic counter, so
+// every tile before it has started, and its row and the row's first tile
+// from the wrapper's tile table; then:
+//   1. it computes the canonical ntHash of each k-mer of the tile (a halo
+//      of w-1 bases, plus one window in front: the previous tile's last
+//      window) once, in O(1) from block-wide prefix-XORs of the bases;
+//   2. van Herk / Gil-Werman sliding minimum: the tile's k-mers fall into
+//      blocks of m = w-k+1; a thread takes one (slot, block) and walks the
+//      block backward (suffix minima S, written to the window minima of the
+//      block in shared memory) and the next block forward (prefix minima P):
+//      window i = min(S[i], P[i+m-1]). Per k-mer and slot two slot hashes
+//      and two u64 minima, in registers, with no barrier between slots. A
+//      thread compares each window it finishes with the one before it and
+//      marks a change; windows at the start of an m-block are compared over
+//      every slot after the barrier;
+//   3. a block scan ranks the tile's run starts; the tile's first output
+//      slot comes from a single-pass decoupled look-back over the tiles
+//      before it (status and value in one 64-bit word: aggregate, or
+//      inclusive prefix); row, column and the s minima of each run start
+//      are written from shared memory, coalesced. Nothing is written for a
+//      window that is not a run start; each tile adds its count to its
+//      row's, and the last tile writes M.
 // Windows past len-w are never computed, and every k-mer of a valid window
 // is valid, so no masking is needed. Codes above 4 count as N (seed 0).
 //
-// What bounds it on the card: integer instructions in step 1 (per window
-// and slot one multiply-xorshift, ~log2(m) + 2 u64 minima, all in shared
-// memory), then the scratch: 8*s bytes per window written once and read
-// back only for the run starts.
+// What bounds it on the card: integer instructions (per k-mer and slot two
+// multiply-xorshift slot hashes and two u64 minima), then the output, 8 + 8s
+// bytes a run start.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,182 +51,330 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileW = 1024;  // windows per block
-constexpr int kPer = kTileW / kThreads;
+constexpr int kU = 8;       // hashes a sliding-minimum walk loads at once
+constexpr int kTileWidths[] = {512, 256, 128, 64, 32};  // widest first
 
-__global__ void window_sketch_kernel(
+// slot_hash (nthash.cuh) of a canonical hash, for a slot's multiplier
+// (1 for slot 0) and shift mask (0 for slot 0)
+__device__ __forceinline__ u64 mix_slot(u64 c, u64 mult, u64 keep) {
+  const u64 h = c * mult;
+  return h ^ ((h >> kMultiShift) & keep);
+}
+constexpr u64 kAggregate = 1ULL << 62;  // tile status: its own count known
+constexpr u64 kInclusive = 2ULL << 62;  // tile status: its inclusive prefix
+constexpr u64 kValueMask = (1ULL << 62) - 1;
+
+// Dynamic shared memory of a tile of tw windows: minima [s][tw+1] (the odd row stride keeps the slots' u64 in distinct
+// banks; the prefix-XORs [2][tw+w+1] use the same space before them),
+// hashes [tw+m], run-start list [tw], change marks [tw+1].
+inline size_t tile_smem(int tw, int s, int k, int w) {
+  const int m = w - k + 1;
+  const size_t mins = static_cast<size_t>(s) * (tw + 1), xy = 2 * static_cast<size_t>(tw + w + 1);
+  return sizeof(u64) * ((mins > xy ? mins : xy) + tw + m) + sizeof(int32_t) * tw +
+         (tw + 1);
+}
+
+// Block-wide exclusive XOR-scan of a pair (all threads call it; wx, wy are
+// shared scratch of 32 entries each).
+__device__ __forceinline__ void block_xor_scan2(u64& a, u64& b, u64* wx, u64* wy) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  u64 ia = a, ib = b;
+  for (int o = 1; o < 32; o <<= 1) {
+    const u64 na = __shfl_up_sync(0xffffffffu, ia, o);
+    const u64 nb = __shfl_up_sync(0xffffffffu, ib, o);
+    if (lane >= o) {
+      ia ^= na;
+      ib ^= nb;
+    }
+  }
+  if (lane == 31) {
+    wx[wid] = ia;
+    wy[wid] = ib;
+  }
+  __syncthreads();
+  if (wid == 0) {
+    const int n_warps = blockDim.x >> 5;
+    u64 xa = lane < n_warps ? wx[lane] : 0, xb = lane < n_warps ? wy[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const u64 na = __shfl_up_sync(0xffffffffu, xa, o);
+      const u64 nb = __shfl_up_sync(0xffffffffu, xb, o);
+      if (lane >= o) {
+        xa ^= na;
+        xb ^= nb;
+      }
+    }
+    if (lane < n_warps) {
+      wx[lane] = xa;
+      wy[lane] = xb;
+    }
+  }
+  __syncthreads();
+  const u64 ea = ia ^ a, eb = ib ^ b;  // exclusive within the warp
+  a = wid > 0 ? ea ^ wx[wid - 1] : ea;
+  b = wid > 0 ? eb ^ wy[wid - 1] : eb;
+  __syncthreads();  // wx, wy may be reused
+}
+
+__global__ void __launch_bounds__(kThreads) window_sketch_kernel(
     const uint8_t* __restrict__ codes, const int32_t* __restrict__ lens,
-    const int64_t* __restrict__ row_base, int L, int k, int s, int w,
-    int n_tiles, long long cap, u64* __restrict__ sk_scratch,
-    uint8_t* __restrict__ flags, int32_t* __restrict__ tile_cnt) {
+    const int32_t* __restrict__ tile_row, const int32_t* __restrict__ row_tile0,
+    int L, int k, int s, int w, int tw,
+    unsigned long long* __restrict__ tile_state,
+    unsigned long long* __restrict__ tile_counter,
+    int64_t* __restrict__ total, int64_t* __restrict__ row_counts,
+    int32_t* __restrict__ out_row, int32_t* __restrict__ out_col,
+    u64* __restrict__ out_sk) {
   extern __shared__ u64 smem[];
   __shared__ long long warp_sums[32];
+  __shared__ u64 wx[32], wy[32];
+  __shared__ int tile_sh;
+  __shared__ long long agg_sh, base_sh;
   const int m = w - k + 1;
-  const int nk_cap = kTileW + m;
-  u64* c = smem;
-  u64* buf0 = c + nk_cap;
-  u64* buf1 = buf0 + nk_cap;
-  uint8_t* row = reinterpret_cast<uint8_t*>(buf1 + nk_cap);
-  uint8_t* diff = row + kTileW + w;
+  const int os = tw + 1;  // row stride of the minima
+  u64* mins = smem;
+  const size_t n_mins = static_cast<size_t>(s) * os, n_xy = 2 * static_cast<size_t>(tw + w + 1);
+  u64* c = mins + (n_mins > n_xy ? n_mins : n_xy);
+  int32_t* rs_list = reinterpret_cast<int32_t*>(c + tw + m);
+  uint8_t* diff = reinterpret_cast<uint8_t*>(rs_list + tw);
 
-  const int r = blockIdx.x, t = blockIdx.y;
+  if (threadIdx.x == 0) tile_sh = static_cast<int>(atomicAdd(tile_counter, 1ULL));
+  __syncthreads();
+  const int tile = tile_sh;
+  const int r = tile_row[tile];
+  const int t0 = (tile - row_tile0[r]) * tw;
   const int nw = lens[r] - w + 1;  // valid windows of the row
-  const int t0 = t * kTileW;
-  const int tile = r * n_tiles + t;
-  if (t0 >= nw) {
-    if (threadIdx.x == 0) tile_cnt[tile] = 0;
-    return;
-  }
-  const int nt = nw - t0 < kTileW ? nw - t0 : kTileW;  // windows emitted
+  const int nt = nw - t0 < tw ? nw - t0 : tw;  // emitted, at least 1
   const int halo = t0 > 0 ? 1 : 0;
   const int a0 = t0 - halo;     // first window computed
   const int nwc = nt + halo;    // windows computed
   const int nk = nwc + m - 1;   // their k-mers
   const int nb = nk + k - 1;    // their bases
-  const uint8_t* src = codes + static_cast<size_t>(r) * L + a0;
-  const size_t base = static_cast<size_t>(row_base[r]) + a0;
-  const u64 kseed = static_cast<u64>(k) * kMultiSeed;
 
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    const uint8_t b = src[i];
-    row[i] = b > 4 ? 4 : b;
+  // 1. canonical hashes in O(1) a k-mer from the exclusive prefix-XORs
+  //    X of gf(p) = ror(seed[b_p], p) and Y of gr(p) = rol(seed_rc[b_p], p)
+  //    over the tile's bases (nthash.cuh): each thread XORs a run of
+  //    consecutive bases, one block scan, then each k-mer at once
+  const uint8_t* src = codes + static_cast<size_t>(r) * L + a0;
+  u64* X = mins;
+  u64* Y = mins + nb + 1;
+  const int per_b = (nb + blockDim.x - 1) / blockDim.x;
+  const int p0 = threadIdx.x * per_b;
+  const int p1 = p0 + per_b < nb ? p0 + per_b : nb;
+  u64 fx = 0, fy = 0;
+  for (int p = p0; p < p1; ++p) {
+    const unsigned b = src[p];
+    fx ^= rotr64(seed_of(b), p);
+    fy ^= rotl64(seed_rc_of(b), p);
+  }
+  block_xor_scan2(fx, fy, wx, wy);
+  for (int p = p0; p < p1; ++p) {
+    X[p] = fx;
+    Y[p] = fy;
+    const unsigned b = src[p];
+    fx ^= rotr64(seed_of(b), p);
+    fy ^= rotl64(seed_rc_of(b), p);
+  }
+  if (p0 < nb && p1 == nb) {
+    X[nb] = fx;
+    Y[nb] = fy;
   }
   for (int i = threadIdx.x; i < nwc; i += blockDim.x) diff[i] = 0;
   __syncthreads();
   for (int j = threadIdx.x; j < nk; j += blockDim.x)
-    c[j] = canonical_kmer_hash(row + j, k);
+    c[j] = umin64(rotl64(X[j + k] ^ X[j], j + k - 1), rotr64(Y[j + k] ^ Y[j], j));
+  __syncthreads();  // the minima overwrite X and Y
+
+  // 2. sliding minimum: a thread a (slot, block of m windows); each walk
+  //    loads kU hashes before it stores, so the loads overlap
+  const u64 kseed = static_cast<u64>(k) * kMultiSeed;
+  const int nblk = (nwc + m - 1) / m;
+  for (int task = threadIdx.x; task < s * nblk; task += blockDim.x) {
+    const int slot = task % s, b0 = (task / s) * m;
+    // slot_hash without a branch: slot 0 multiplies by 1, shifts nothing
+    const u64 mult = slot ? (static_cast<u64>(slot) ^ kseed) : 1ULL;
+    const u64 keep = slot ? ~0ULL : 0ULL;
+    u64* mrow = mins + static_cast<size_t>(slot) * os;
+    const int jend = b0 + m - 1 < nk - 1 ? b0 + m - 1 : nk - 1;
+    u64 sv = ~0ULL;
+    int j = jend;
+    for (; j >= nwc; --j) sv = umin64(sv, mix_slot(c[j], mult, keep));
+    for (; j - (kU - 1) >= b0; j -= kU) {  // suffix minima of the block
+      u64 h[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) h[u] = c[j - u];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        sv = umin64(sv, mix_slot(h[u], mult, keep));
+        mrow[j - u] = sv;
+      }
+    }
+    for (; j >= b0; --j) {
+      sv = umin64(sv, mix_slot(c[j], mult, keep));
+      mrow[j] = sv;
+    }
+    u64 pv = ~0ULL, prev = sv;  // prefix minima of the next block
+    const int iend = b0 + m < nwc ? b0 + m : nwc;
+    int i = b0 + 1;
+    for (; i + kU <= iend; i += kU) {
+      u64 h[kU], v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        h[u] = c[i + u + m - 1];
+        v[u] = mrow[i + u];
+      }
+      bool changed[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        pv = umin64(pv, mix_slot(h[u], mult, keep));
+        v[u] = umin64(v[u], pv);
+        changed[u] = v[u] != prev;
+        prev = v[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        mrow[i + u] = v[u];
+        if (changed[u]) diff[i + u] = 1;
+      }
+    }
+    for (; i < iend; ++i) {
+      pv = umin64(pv, mix_slot(c[i + m - 1], mult, keep));
+      const u64 v = umin64(mrow[i], pv);
+      mrow[i] = v;
+      if (v != prev) diff[i] = 1;
+      prev = v;
+    }
+  }
   __syncthreads();
 
-  int p = 1;
-  while (2 * p <= m) p *= 2;
-  for (int slot = 0; slot < s; ++slot) {
-    for (int j = threadIdx.x; j < nk; j += blockDim.x)
-      buf0[j] = slot_hash(c[j], slot, kseed);
-    __syncthreads();
-    u64* cur = buf0;  // cur[j] = min of the slot's hashes j .. j+d-1
-    u64* nxt = buf1;
-    for (int d = 1; d < p; d *= 2) {
-      for (int j = threadIdx.x; j < nk - 2 * d + 1; j += blockDim.x) {
-        const u64 a = cur[j], b = cur[j + d];
-        nxt[j] = a < b ? a : b;
-      }
-      __syncthreads();
-      u64* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-    for (int i = threadIdx.x; i < nwc; i += blockDim.x) {
-      u64 v = cur[i], v2 = cur[i + m - p];
-      v = v2 < v ? v2 : v;
-      if (i > 0) {
-        u64 u = cur[i - 1], u2 = cur[i - 1 + m - p];
-        u = u2 < u ? u2 : u;
-        if (u != v) diff[i] = 1;
-      }
-      if (i >= halo)
-        sk_scratch[static_cast<size_t>(slot) * cap + base + i] = v;
-    }
-    __syncthreads();  // the next slot rewrites buf0
-  }
-
+  // 3. flags (a thread a run of consecutive windows), ranks, look-back
+  const int per = (tw + blockDim.x - 1) / blockDim.x;
+  const int e0 = threadIdx.x * per;
   int cnt = 0;
-  for (int i = halo + threadIdx.x; i < nwc; i += blockDim.x) {
-    const uint8_t f = (a0 + i == 0) || diff[i];
-    flags[base + i] = f;
+  unsigned fbits = 0;
+  for (int q = 0; q < per; ++q) {
+    const int e = e0 + q;
+    if (e >= nt) break;
+    const int i = e + halo;
+    bool f = (a0 + i == 0) || diff[i];
+    if (!f && i > 0 && i % m == 0)
+      for (int slot = 0; slot < s && !f; ++slot)
+        f = mins[static_cast<size_t>(slot) * os + i] !=
+            mins[static_cast<size_t>(slot) * os + i - 1];
+    fbits |= static_cast<unsigned>(f) << q;
     cnt += f;
   }
-  const long long total = block_inclusive_scan(cnt, warp_sums);
-  if (threadIdx.x == blockDim.x - 1) tile_cnt[tile] = static_cast<int32_t>(total);
-}
-
-// off[i] = sum of cnt[0 .. i-1] for i <= n (off[n] = the total), one block.
-__global__ void window_scan_kernel(const int32_t* __restrict__ cnt, int n,
-                                   int64_t* __restrict__ off) {
-  __shared__ long long warp_sums[32];
-  __shared__ long long carry;
-  if (threadIdx.x == 0) carry = 0;
+  const long long incl = block_inclusive_scan(cnt, warp_sums);
+  if (threadIdx.x == blockDim.x - 1) agg_sh = incl;  // the tile's count
   __syncthreads();
-  for (int b = 0; b < n; b += blockDim.x) {
-    const int i = b + threadIdx.x;
-    const long long v = i < n ? cnt[i] : 0;
-    const long long incl = block_inclusive_scan(v, warp_sums);
-    const long long c0 = carry;
-    if (i < n) off[i] = c0 + incl - v;
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry = c0 + incl;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) off[n] = carry;
-}
+  const long long agg = agg_sh;
 
-__global__ void window_compact_kernel(
-    const int32_t* __restrict__ lens, const int64_t* __restrict__ row_base,
-    int w, int s, int n_tiles, long long cap,
-    const u64* __restrict__ sk_scratch, const uint8_t* __restrict__ flags,
-    const int64_t* __restrict__ tile_off, int32_t* __restrict__ out_row,
-    int32_t* __restrict__ out_col, u64* __restrict__ out_sk) {
-  __shared__ long long warp_sums[32];
-  const int r = blockIdx.x, t = blockIdx.y;
-  const int nw = lens[r] - w + 1;
-  const int t0 = t * kTileW;
-  if (t0 >= nw) return;
-  const int nt = nw - t0 < kTileW ? nw - t0 : kTileW;
-  const size_t base = static_cast<size_t>(row_base[r]) + t0;
-  const int i0 = threadIdx.x * kPer;  // this thread's kPer windows, in order
-  uint8_t f[kPer];
-  int cnt = 0;
-  for (int q = 0; q < kPer; ++q) {
-    const int i = i0 + q;
-    f[q] = i < nt ? flags[base + i] : 0;
-    cnt += f[q];
+  if (threadIdx.x < 32) {  // decoupled look-back, warp 0
+    const int lane = threadIdx.x;
+    volatile unsigned long long* st = tile_state;
+    if (lane == 0)
+      st[tile] = (tile == 0 ? kInclusive : kAggregate) | static_cast<u64>(agg);
+    long long excl = 0;
+    int look = tile - 1;  // the newest tile not yet summed
+    while (look >= 0) {
+      const int pred = look - lane;
+      u64 v = kInclusive;  // past tile 0: an inclusive prefix of 0
+      if (pred >= 0) {
+        do { v = st[pred]; } while ((v >> 62) == 0);
+      }
+      const unsigned incl_mask = __ballot_sync(0xffffffffu, (v >> 62) == 2);
+      const int stop = __ffs(incl_mask) - 1;  // nearest inclusive prefix
+      const bool take = stop < 0 || lane <= stop;
+      long long add = take ? static_cast<long long>(v & kValueMask) : 0;
+      for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(0xffffffffu, add, o);
+      excl += add;
+      look = stop >= 0 ? -1 : look - 32;
+    }
+    if (lane == 0) {
+      if (tile > 0) st[tile] = kInclusive | static_cast<u64>(excl + agg);
+      base_sh = excl;
+      if (agg > 0)
+        atomicAdd(reinterpret_cast<unsigned long long*>(row_counts) + r,
+                  static_cast<unsigned long long>(agg));
+      if (tile == static_cast<int>(gridDim.x) - 1) total[0] = excl + agg;
+    }
   }
-  long long o = tile_off[r * n_tiles + t] +
-                block_inclusive_scan(cnt, warp_sums) - cnt;
-  for (int q = 0; q < kPer; ++q) {
-    if (!f[q]) continue;
-    const int i = i0 + q;
-    out_row[o] = r;
-    out_col[o] = t0 + i;
-    for (int slot = 0; slot < s; ++slot)
-      out_sk[o * s + slot] = sk_scratch[static_cast<size_t>(slot) * cap + base + i];
+  __syncthreads();
+  const long long base = base_sh;
+
+  long long o = incl - cnt;  // this thread's first rank in the tile
+  for (int q = 0; q < per; ++q) {
+    if (!((fbits >> q) & 1)) continue;
+    const int e = e0 + q;
+    rs_list[o] = e + halo;
+    out_row[base + o] = r;
+    out_col[base + o] = t0 + e;
     ++o;
+  }
+  __syncthreads();
+  u64* dst = out_sk + static_cast<size_t>(base) * s;
+  const int n_out = static_cast<int>(agg) * s;  // at most tw * s
+  for (int x = threadIdx.x; x < n_out; x += blockDim.x) {
+    const int q = x / s, slot = x - q * s;
+    dst[x] = mins[static_cast<size_t>(slot) * os + rs_list[q]];
   }
 }
 
 }  // namespace
 
+// The windows a tile for (k, s, w) on the current device: the widest of
+// kTileWidths that lets two blocks share an SM (by the occupancy query,
+// which counts the static and the per-block reserved shared memory), else
+// the widest that fits one; 0 when none fits, -error on a CUDA error.
+extern "C" int groot_window_tile_width(int k, int s, int w) {
+  if (k < 1 || w < k || s < 1) return 0;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa{};
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, window_sketch_kernel);
+  const size_t limit = optin - fa.sharedSizeBytes;  // dynamic bytes a block
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(window_sketch_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(limit));
+  for (int want = 2; want >= 1 && err == cudaSuccess; --want) {
+    for (const int tw : kTileWidths) {
+      const size_t smem = tile_smem(tw, s, k, w);
+      int blocks = 0;
+      if (smem > limit) continue;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, window_sketch_kernel, kThreads, smem);
+      if (err != cudaSuccess) break;
+      if (blocks >= want) return tw;
+    }
+  }
+  return err == cudaSuccess ? 0 : -static_cast<int>(err);
+}
+
+// tile_row: int32 [n], the row of each tile; row_tile0: int32 [R], the
+// first tile of each row; tile_state: n + 1 zeroed words (the tiles'
+// states, then the tile counter); total: int64 [1] (M); row_counts: zeroed
+// int64 [R].
 extern "C" int groot_window_sketch(
-    const void* codes, const void* lens, const void* row_base, int R, int L,
-    int k, int s, int w, int n_tiles, long long cap, void* sk_scratch,
-    void* flags, void* tile_cnt, void* tile_off, void* out_row, void* out_col,
-    void* out_sk, void* stream) {
-  if (R < 1 || n_tiles < 1 || n_tiles > 65535 || cap < 1 || k < 1 ||
-      w < k || L < w || s < 1)
+    const void* codes, const void* lens, const void* tile_row,
+    const void* row_tile0, int R, int L, int k, int s, int w, int tw, int n,
+    void* tile_state, void* total, void* row_counts, void* out_row,
+    void* out_col, void* out_sk, void* stream) {
+  if (R < 1 || n < 1 || tw < 1 || tw > 32 * kThreads || k < 1 || w < k ||
+      L < w || s < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int m = w - k + 1;
-  const size_t smem = 3 * sizeof(u64) * (kTileW + m) + (kTileW + w) +
-                      (kTileW + 1);
+  const size_t smem = tile_smem(tw, s, k, w);
   cudaError_t err = cudaFuncSetAttribute(
       window_sketch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(R, n_tiles);
-  window_sketch_kernel<<<grid, kThreads, smem, st>>>(
+  unsigned long long* state = static_cast<unsigned long long*>(tile_state);
+  window_sketch_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(lens),
-      static_cast<const int64_t*>(row_base), L, k, s, w, n_tiles, cap,
-      static_cast<u64*>(sk_scratch), static_cast<uint8_t*>(flags),
-      static_cast<int32_t*>(tile_cnt));
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  window_scan_kernel<<<1, 1024, 0, st>>>(
-      static_cast<const int32_t*>(tile_cnt), R * n_tiles,
-      static_cast<int64_t*>(tile_off));
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  window_compact_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const int32_t*>(lens), static_cast<const int64_t*>(row_base),
-      w, s, n_tiles, cap, static_cast<const u64*>(sk_scratch),
-      static_cast<const uint8_t*>(flags),
-      static_cast<const int64_t*>(tile_off), static_cast<int32_t*>(out_row),
+      static_cast<const int32_t*>(tile_row), static_cast<const int32_t*>(row_tile0),
+      L, k, s, w, tw, state, state + n, static_cast<int64_t*>(total),
+      static_cast<int64_t*>(row_counts), static_cast<int32_t*>(out_row),
       static_cast<int32_t*>(out_col), static_cast<u64*>(out_sk));
   return static_cast<int>(cudaGetLastError());
 }

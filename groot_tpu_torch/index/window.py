@@ -31,13 +31,15 @@ reproduced (see tests/test_index.py):
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from .._build import I, I64, Kernel, P, ptr
+from .._build import I, Kernel, P, library, ptr
 from ..graph.grootgraph import GrootGraph
 from ..graph.pack import PackedPaths, pack_graph_paths
 from ..io import native
@@ -45,12 +47,43 @@ from ..ops import nthash
 
 WINDOW_SKETCH = Kernel(
     "window_sketch", "groot_window_sketch",
-    (P, P, P, I, I, I, I, I, I, I64, P, P, P, P, P, P, P),
+    (P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P),
     source="groot_tpu_torch/csrc/window_sketch.cu",
     replaces="groot_tpu/index/window.py:71",
 )
-TILE_W = 1024        # kTileW in csrc/window_sketch.cu: windows per block
-MAX_SMEM = 232_448   # the H100's dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def tile_width(k: int, s: int, w: int, device: torch.device) -> int:
+    """The kernel's windows a tile on a card, as csrc/window_sketch.cu picks
+    it (groot_window_tile_width): the widest of 512, 256, 128, 64 and 32
+    that lets two blocks share an SM, else the widest that fits one; raises
+    when none fits (a very large s or w)."""
+    fn = library().groot_window_tile_width
+    fn.restype = ctypes.c_int
+    fn.argtypes = [I, I, I]
+    with torch.cuda.device(device):
+        tw = fn(k, s, w)
+    if tw < 0:
+        raise RuntimeError("groot_window_tile_width failed: "
+                           f"{library().groot_cuda_error_string(-tw).decode()}")
+    if tw == 0:
+        raise ValueError(f"window k={k} s={s} w={w}: no tile of the window "
+                         "kernel fits in shared memory")
+    return tw
+
+
+def tile_table(nw_row: np.ndarray, tw: int) -> Tuple[np.ndarray, int]:
+    """The kernel's tiles, row by row: each row's windows (nw_row int64
+    [R]) in tiles of tw, the last one partial, none for a row without a
+    window -> (int32 [n + R]: the row of each of the n tiles, then the
+    first tile of each row; n)."""
+    tiles_row = (nw_row + tw - 1) // tw
+    n = int(tiles_row.sum())
+    table = np.empty(n + len(nw_row), np.int32)
+    table[:n] = np.repeat(np.arange(len(nw_row), dtype=np.int32), tiles_row)
+    table[n:] = np.cumsum(tiles_row) - tiles_row
+    return table, n
 
 
 # ---------------------------------------------------------------------------
@@ -145,37 +178,36 @@ def window_run_starts(codes: torch.Tensor, lens: torch.Tensor, k: int, s: int,
         return window_run_starts_torch(codes, lens, k, s, w)
     if codes.device.type != "cuda":
         raise ValueError(f"no kernel for device {codes.device}")
-    smem = 3 * 8 * (TILE_W + m) + (TILE_W + w) + (TILE_W + 1)
-    if smem > MAX_SMEM:
-        raise ValueError(f"window w={w} k={k} needs {smem} bytes of shared memory")
     dev = codes.device
+    tw = tile_width(k, s, w, dev)
     codes, lens = codes.contiguous(), lens.contiguous()
-    if R and int(lens.max()) > L:
+    # the one sync before the launch: the row lengths, for the length
+    # check, the output rows and the tile table, made on the host
+    lens_h = lens.cpu().numpy().astype(np.int64)
+    if R and int(lens_h.max()) > L:
         raise ValueError("a row length exceeds the code matrix width")
-    nw_row = (lens.long() - w + 1).clamp(min=0)
-    cap = int(nw_row.sum())  # every valid window of every row
-    empty_i32 = torch.empty(0, dtype=torch.int32, device=dev)
+    nw_row = np.clip(lens_h - w + 1, 0, None)
+    cap = int(nw_row.sum())
     if cap == 0:
+        empty_i32 = torch.empty(0, dtype=torch.int32, device=dev)
         return (empty_i32, empty_i32,
                 torch.empty((0, s), dtype=torch.int64, device=dev),
                 torch.zeros(R, dtype=torch.int64, device=dev))
-    row_base = torch.cumsum(nw_row, 0) - nw_row
-    n_tiles = -(-int(nw_row.max()) // TILE_W)
-    sk_scratch = torch.empty((s, cap), dtype=torch.int64, device=dev)
-    flags = torch.empty(cap, dtype=torch.uint8, device=dev)
-    tile_cnt = torch.empty(R * n_tiles, dtype=torch.int32, device=dev)
-    tile_off = torch.empty(R * n_tiles + 1, dtype=torch.int64, device=dev)
+    table, n = tile_table(nw_row, tw)
+    table = torch.from_numpy(table).to(dev)
+    # one zeroed block: the tiles' look-back states, the tile counter, M,
+    # the row counts
+    state = torch.zeros(n + 2 + R, dtype=torch.int64, device=dev)
     out_row = torch.empty(cap, dtype=torch.int32, device=dev)
     out_col = torch.empty(cap, dtype=torch.int32, device=dev)
     out_sk = torch.empty((cap, s), dtype=torch.int64, device=dev)
     WINDOW_SKETCH.launch(
-        dev, ptr(codes), ptr(lens), ptr(row_base), R, L, k, s, w, n_tiles,
-        cap, ptr(sk_scratch), ptr(flags), ptr(tile_cnt), ptr(tile_off),
+        dev, ptr(codes), ptr(lens), ptr(table), ptr(table[n:]), R, L, k, s, w,
+        tw, n, ptr(state), ptr(state[n + 1:]), ptr(state[n + 2:]),
         ptr(out_row), ptr(out_col), ptr(out_sk),
     )
-    M = int(tile_off[-1])
-    row_off = tile_off[::n_tiles]  # R + 1 offsets: each row's first tile, and M
-    return out_row[:M], out_col[:M], out_sk[:M], row_off[1:] - row_off[:-1]
+    M = int(state[n + 1])  # the sync after it
+    return out_row[:M], out_col[:M], out_sk[:M], state[n + 2:]
 
 
 # ---------------------------------------------------------------------------

@@ -338,15 +338,19 @@ def test_seed_scan_kernel_random_tables(cuda, k, D1):
     assert ((got & 0xFF) < 255).sum() > 100 and ((got >> 16) != 0).sum() > 100
 
 
-def _window_rows(rng, L: int):
-    """Ragged rows with Ns up to L bases, rows whose window counts sit on
-    the kernel's 1,024-window tile edges, and rows with constant and copied
-    stretches so that runs of identical sketches cross tile edges."""
-    lens = [L, L - 1, 1023 + 150, 1024 + 150, 1025 + 150, 2048 + 149, 150,
-            149, 2700, 2600]
+def _window_rows(rng, L: int, w: int, tw: int):
+    """Ragged rows with Ns up to L bases: rows whose window counts sit on
+    the kernel's tile edges (tw windows) and one past them, rows of exactly
+    w bases, shorter than w and empty, an all-N row, and rows with constant
+    and copied stretches so that runs of identical sketches cross tile
+    edges."""
+    lens = [L, L - 1, w, w - 1, 0, 2700, 2600]
+    lens += [n * tw + d + w - 1 for n in (1, 2, 4) for d in (-1, 0, 1)]
+    lens = [n for n in lens if n <= L]
     lens += rng.integers(100, L + 1, size=22).tolist()
     codes = rng.integers(0, 4, size=(len(lens), L)).astype(np.uint8)
     codes[rng.random(codes.shape) < 0.005] = 4
+    codes[len(lens) - 1] = 4  # all N
     for i, n in enumerate(lens):
         codes[i, n:] = 4
         if n >= 2600:
@@ -358,10 +362,15 @@ def _window_rows(rng, L: int):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,s,w,L", [(31, 20, 150, 3000), (31, 16, 100, 3000),
-                                     (7, 16, 40, 3000), (31, 20, 150, 40_000)])
+                                     (7, 16, 40, 3000), (31, 20, 150, 40_000),
+                                     (31, 20, 31, 3000), (7, 3, 7, 3000),
+                                     (31, 64, 150, 3000), (15, 200, 400, 3000)])
 def test_window_sketch_kernel_matches_plain_and_native(cuda, k, s, w, L):
+    """m = 1 (w = k), an s that takes a narrower tile (s = 64 and 200),
+    every tile edge, short, empty and all-N rows."""
     assert _build.native_runtime()
-    codes, lens = _window_rows(np.random.default_rng(L + k), L)
+    tw = window.tile_width(k, s, w, cuda)
+    codes, lens = _window_rows(np.random.default_rng(L + k + s), L, w, tw)
     c, v = torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda)
     before = window.WINDOW_SKETCH.launches
     got = window.window_run_starts(c, v, k, s, w)
@@ -376,6 +385,19 @@ def test_window_sketch_kernel_matches_plain_and_native(cuda, k, s, w, L):
     np.testing.assert_array_equal(cols, want[1])
     np.testing.assert_array_equal(sk.view(np.uint64), want[2])
     np.testing.assert_array_equal(counts, want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,w", [(31, 20, 150), (31, 64, 150), (15, 200, 400),
+                                   (7, 1, 7)])
+def test_window_tile_width_fits_shared_memory(cuda, k, s, w):
+    """The kernel's tile: one of its widths, never wider as s grows, and a
+    shape no tile fits raises."""
+    tw = window.tile_width(k, s, w, cuda)
+    assert tw in (512, 256, 128, 64, 32)
+    assert tw <= window.tile_width(k, min(s, 20), w, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        window.tile_width(k, 2000, w, cuda)
 
 
 @pytest.mark.cuda
@@ -567,6 +589,65 @@ def test_lsh_query_kernel_matches_plain(cuda, mode):
         assert sorted(w[12].tolist()) == [9, 10, 11, 12]
     if mode == "K1":  # C = 480: the cap and the duplicate mask at full width
         assert (w[:6] >= 0).sum(axis=1).max() <= 1
+
+
+def _lsh_edge_case(case: str, mode: str):
+    """A table and queries at the search's edges: N = 1 or 33 windows; a
+    bucket of 30 equal windows (more than M) whose band-0 signature sorts
+    last; s = 64, K = 1, M = 64 for C = 4,096. The queries hold copies of
+    table windows (some slots changed), keys below and above every
+    signature of band 0, random sketches and rows of no k-mer."""
+    rng = np.random.default_rng(len(case) + len(mode))
+    N, s = {"N1": (1, 20), "N33": (33, 20), "tail": (500, 20), "C4096": (3000, 64)}[case]
+    Kb = {"full": s, "K1": 1, "K2": 2}[mode]
+    sk = rng.integers(1 << 40, 1 << 62, size=(N, s)).astype(np.uint64)
+    if case == "C4096":  # a 4-value alphabet: busy buckets
+        sk = rng.integers(1, 5, size=(N, s)).astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    if case == "tail":
+        last = int(np.argmax(lshe._mix_bands_np(sk, Kb)[:, 0]))
+        sk[rng.choice(np.delete(np.arange(N), last), 29, replace=False)] = sk[last]
+    sig = lshe._mix_bands_np(sk, Kb)
+    order = np.argsort(sig, axis=0, kind="stable")
+    sigs = np.take_along_axis(sig, order, axis=0).T.copy()
+    idx = order.T.astype(np.int32).copy()
+    cand = rng.integers(1, 1 << 62, size=(20_000, s)).astype(np.uint64)
+    csig = lshe._mix_bands_np(cand, Kb)[:, 0]
+    below = cand[csig < sigs[0, 0]][:8]
+    above = cand[csig > sigs[0, -1]][:8]
+    q = sk[rng.integers(0, N, size=64)].copy()
+    flip = rng.random(q.shape) < rng.random((len(q), 1)) * 0.3
+    q[flip] = rng.integers(1, 1 << 62, size=int(flip.sum())).astype(np.uint64)
+    q[0] = sk[order[-1, 0]]
+    q = np.concatenate([q, below, above, cand[-8:], sk[:4]])
+    kc = rng.integers(1, 201, size=len(q)).astype(np.int32)
+    kc[-4:] = (0, -3, 0, 50)
+    return q, kc, sk, sigs, idx, Kb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,mode", [
+    ("N1", "full"), ("N1", "K2"), ("N33", "full"), ("N33", "K1"),
+    ("tail", "full"), ("tail", "K2"), ("C4096", "K1"),
+])
+def test_lsh_query_kernel_table_edges(cuda, case, mode):
+    q, kc, sk, sigs, idx, Kb = _lsh_edge_case(case, mode)
+    s = sk.shape[1]
+    M = 4 if mode == "full" else (64 if case == "C4096" else lshe.MAX_PER_BAND)
+    qmax = pdi.max_keep_q(120.0, 0.97) if mode == "full" else None
+    args = [torch.from_numpy(x).to(cuda) for x in (
+        q.view(np.int64), kc, sk.view(np.int64), sigs.view(np.int32), idx)]
+    kw = dict(K=Kb, M=M, domain_size=120, threshold=0.97, qmax=qmax)
+    before = lshe.LSH_QUERY.launches
+    win, contain = lshe.query_device(*args, **kw)
+    torch.cuda.synchronize()
+    assert lshe.LSH_QUERY.launches == before + 1
+    win_p, contain_p = lshe.query_device_torch(*args, **kw)
+    assert win.shape == (len(q), (s // Kb) * M)
+    assert torch.equal(win, win_p)
+    assert _ulps(contain, contain_p) <= 1
+    assert (win >= 0).any()
+    if case == "C4096":
+        assert win.shape[1] == 4096
 
 
 def _weight_inputs(seed: int, B: int = 700, C: int = 96, N: int = 3000,

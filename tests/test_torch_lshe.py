@@ -184,3 +184,133 @@ def test_query_device_checks_its_inputs(sketched):
         lshe.query_device(q, torch.from_numpy(kc), sk, sigs, idx, K=3, **kw)
     with pytest.raises(ValueError):
         lshe.query_device(q, torch.from_numpy(kc), sk, sigs, idx, K=2, qmax=71, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the lsh_query kernel's search and sort (csrc/lsh_query.cu), emulated
+# ---------------------------------------------------------------------------
+def _kary_lower_bound(row: np.ndarray, key: int, g: int):
+    """The kernel's (g + 1)-ary lower bound with g lanes: each level the
+    lanes test the last entry of g of the g + 1 sub-ranges of the unknown
+    entries [lo, hi) and the count of those below the key picks the
+    sub-range. Returns (lo, levels)."""
+    lo, hi, levels = 0, len(row), 0
+    while lo < hi:
+        n = hi - lo
+        ends = lo + (np.arange(1, g + 1) * n + g) // (g + 1)
+        below = row[ends - 1] < key
+        c = int(below.sum())
+        assert not below[c:].any()  # the lanes below the key are a prefix
+        nlo = lo + (c * n + g) // (g + 1)
+        if c < g:
+            hi = lo + ((c + 1) * n + g) // (g + 1) - 1
+        lo, levels = nlo, levels + 1
+    return lo, levels
+
+
+def _search_rows(rng, N: int):
+    """A sorted u32 row of N entries with runs of equal signatures longer
+    than 24, one of them at the row's end, and the keys to look up: every
+    value, each value +- 1, keys below the minimum and above the maximum."""
+    vals = np.sort(rng.integers(10, 2**32 - 10, size=max(N // 8, 1)))
+    row = np.sort(np.concatenate([
+        rng.choice(vals, size=N - min(N, 30)), np.full(min(N, 30), vals[-1])]))
+    row = row.astype(np.uint32)
+    keys = np.unique(np.concatenate([
+        row.astype(np.int64), row.astype(np.int64) + 1, row.astype(np.int64) - 1,
+        [0, 1, int(row[0]) - 5, int(row[-1]) + 5, 2**32 - 1]]))
+    return row, keys[(keys >= 0) & (keys < 2**32)].astype(np.uint32)
+
+
+def _group_width(L: int) -> int:
+    """The kernel's lanes a band: the largest 2^d - 1 <= 32 // L (at least
+    1), so that the 2^d sub-range edges are shifts."""
+    lg = 1
+    while (2 << lg) - 1 <= (1 if L >= 32 else 32 // L):
+        lg += 1
+    return (1 << lg) - 1
+
+
+@pytest.mark.parametrize("L,g", [(1, 31), (2, 15), (4, 7), (5, 3), (10, 3), (11, 1),
+                                 (20, 1), (64, 1)])
+def test_group_width_gives_every_band_a_group(L, g):
+    assert _group_width(L) == g
+    assert g * min(L, 32 // g) <= 32
+
+
+@pytest.mark.parametrize("g", range(1, 33))
+def test_kary_lower_bound_and_equality_scan(g):
+    """For every group width (the kernel takes g = 2^d - 1, where the edges
+    are shifts), the k-ary lower bound equals searchsorted's,
+    and the kernel's equality scan (slot m holds an id when lo + m < N and
+    row[lo + m] == key) equals the reference's lo + m < hi, on N = 1, 31,
+    32, 33 and 1,000, with runs longer than M = 24, runs that end at the
+    row's end and keys off both ends."""
+    rng = np.random.default_rng(g)
+    M = lshe.MAX_PER_BAND
+    for N in (1, 31, 32, 33, 1000):
+        row, keys = _search_rows(rng, N)
+        lo_ref = np.searchsorted(row, keys, side="left")
+        hi_ref = np.searchsorted(row, keys, side="right")
+        for key, lo_r, hi_r in zip(keys, lo_ref, hi_ref):
+            lo, levels = _kary_lower_bound(row, key, g)
+            assert lo == lo_r
+            assert levels <= int(np.ceil(np.log(N + 1) / np.log(g + 1))) + 1
+            pos = lo + np.arange(M)
+            mine = (pos < N) & (row[np.minimum(pos, N - 1)] == key)
+            np.testing.assert_array_equal(mine, pos < hi_r)
+        assert (hi_ref - lo_ref).max() > M or N < M  # a run longer than M
+
+
+def test_kary_full_warp_levels_at_the_data_plane_scale():
+    """The full mode's whole-warp search (g = 32) needs 4 levels at the
+    data plane's 408,788 windows, against 19 for a binary search."""
+    rng = np.random.default_rng(3)
+    row = np.sort(rng.integers(0, 2**32, size=408_788)).astype(np.uint32)
+    for key in rng.choice(row, 50):
+        lo, levels = _kary_lower_bound(row, int(key), 32)
+        assert lo == np.searchsorted(row, key) and levels <= 4
+
+
+def _warp_bitonic_np(buf: np.ndarray) -> np.ndarray:
+    """The kernel's bitonic sort of Cp entries held as entry r * 32 + lane
+    of lane `lane`: strides of 32 and more compare entries in shared
+    memory, smaller ones exchange with lane ^ stride (a shuffle)."""
+    v = buf.copy()
+    Cp = len(v)
+    e = np.arange(Cp)
+    size = 2
+    while size <= Cp:
+        stride = size // 2
+        while stride > 0:
+            partner = e ^ stride
+            asc = (e & size) == 0
+            lower = (e & stride) == 0
+            if stride < 32:
+                assert ((e % 32) ^ stride == partner % 32).all()  # same r
+            lo_v, hi_v = np.minimum(v, v[partner]), np.maximum(v, v[partner])
+            v = np.where(lower == asc, lo_v, hi_v)
+            stride //= 2
+        size *= 2
+    return v
+
+
+@pytest.mark.parametrize("C", [1, 3, 24, 33, 240, 480, 4096])
+@pytest.mark.parametrize("found", [0.0, 0.2, 1.0])
+def test_compacted_sort_gives_the_reference_order(C, found):
+    """The kernel's banded order: the ids found compacted in slot order (by
+    ballots, 32 slots a round), padded with INT_MAX to P2 = max(32,
+    2^ceil(log2 n)) and sorted by the bitonic network, the -1s of the
+    empty slots in front: the reference's jnp.sort order, so the duplicate
+    mask leaves its ids."""
+    rng = np.random.default_rng(C)
+    ids = rng.integers(0, max(C // 3, 2), size=C).astype(np.int32)
+    ids[rng.random(C) >= found] = -1
+    real = ids[ids >= 0]  # what the ballots compact, in slot order
+    P2 = max(32, 1 << max(len(real) - 1, 0).bit_length())
+    buf = np.full(P2, 0x7FFFFFFF, np.int32)
+    buf[:len(real)] = real
+    got = np.concatenate([np.full(C - len(real), -1, np.int32),
+                          _warp_bitonic_np(buf)[:len(real)]])
+    np.testing.assert_array_equal(got, np.sort(ids))
+

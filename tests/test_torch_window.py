@@ -12,6 +12,7 @@ import torch
 from groot_tpu.index.window import _change_mask, window_sketches
 from groot_tpu.io import native
 from groot_tpu_torch.index import window as pw
+from groot_tpu_torch.ops import nthash
 
 SHAPES = [(7, 16, 40), (31, 20, 100)]
 
@@ -115,3 +116,147 @@ def test_window_run_starts_rejects_bad_input():
 def test_sketch_graphs_soa_refuses_unknown_device():
     with pytest.raises(ValueError, match="device"):
         pw.sketch_graphs_soa([], 100, 31, 20, "meta")
+
+
+# ---------------------------------------------------------------------------
+# the window-sketch kernel's walk (csrc/window_sketch.cu), emulated in numpy
+# ---------------------------------------------------------------------------
+def _prefix_hashes_np(row, k: int, nk: int) -> np.ndarray:
+    """The kernel's canonical hashes of a tile: the exclusive prefix-XORs
+    X of ror(seed[b_p], p) and Y of rol(seed_rc[b_p], p) over the tile's
+    bases (p from the tile's first base), then each k-mer from two of
+    them."""
+    p = np.arange(len(row), dtype=np.uint64)
+    gf = nthash._ror_np(nthash.SEEDS_NP[row], p)
+    gr = nthash._rol_np(nthash.SEEDS_RC_NP[row], p)
+    X = np.concatenate([[np.uint64(0)], np.bitwise_xor.accumulate(gf)])
+    Y = np.concatenate([[np.uint64(0)], np.bitwise_xor.accumulate(gr)])
+    j = np.arange(nk)
+    return np.minimum(nthash._rol_np(X[j + k] ^ X[j], j + k - 1),
+                      nthash._ror_np(Y[j + k] ^ Y[j], j))
+
+
+def _tiles_np(lens, w: int, tw: int):
+    """The wrapper's tile table (`tile_table`) for rows of `lens`: (the row
+    of each tile, the first tile of each row)."""
+    table, n = pw.tile_table(np.clip(lens.astype(np.int64) - w + 1, 0, None), tw)
+    return table[:n], table[n:]
+
+
+def _kernel_walk_np(codes, lens, k: int, s: int, w: int, tw: int):
+    """The kernel's run starts, walked as it walks them: the tiles of the
+    wrapper's tile table in order (tw windows of a row each, none for a row
+    without a window), each with the previous tile's last window as a halo; per
+    (slot, m-block) the backward suffix minima and the forward prefix
+    minima, a change marked where a finished window differs from the one
+    before it, windows at an m-block start compared over every slot; each
+    tile's run starts ranked in order at the count of every tile before it
+    (what the look-back sums). Returns native.window_sketch's contract."""
+    R, L = codes.shape
+    m = w - k + 1
+    out_row, out_col, out_sk = [], [], []
+    counts = np.zeros(R, np.int64)
+    tile_row, row_tile0 = _tiles_np(lens, w, tw)
+    for tile, r in enumerate(tile_row):
+        t0 = (tile - int(row_tile0[r])) * tw
+        nw = int(lens[r]) - w + 1
+        nt = min(nw - t0, tw)
+        assert nt > 0  # no tile is empty
+        halo = 1 if t0 > 0 else 0
+        a0, nwc = t0 - halo, nt + halo
+        nk = nwc + m - 1
+        row = np.minimum(codes[r, a0:a0 + nk + k - 1], 4)
+        h = nthash.multihash_np(_prefix_hashes_np(row, k, nk), k, s)  # [nk, s]
+        mins = np.empty((nwc, s), np.uint64)
+        diff = np.zeros(nwc, bool)
+        b0 = np.arange(0, nwc, m)
+        sv = np.full((len(b0), s), np.uint64(2**64 - 1))
+        for d in range(m - 1, -1, -1):  # suffix minima, all blocks at once
+            j = b0 + d
+            ok = j < nk
+            sv[ok] = np.minimum(sv[ok], h[j[ok]])
+            ok &= j < nwc
+            mins[j[ok]] = sv[ok]
+        pv = np.full_like(sv, np.uint64(2**64 - 1))
+        prev = sv.copy()
+        for d in range(1, m):  # prefix minima of the next block
+            i = b0 + d
+            ok = i < nwc
+            pv[ok] = np.minimum(pv[ok], h[i[ok] + m - 1])
+            v = np.minimum(mins[i[ok]], pv[ok])
+            mins[i[ok]] = v
+            diff[i[ok]] |= (v != prev[ok]).any(axis=1)
+            prev[ok] = v
+        i = np.arange(halo, nwc)
+        edge = (i > 0) & (i % m == 0)
+        edge[edge] = (mins[i[edge]] != mins[i[edge] - 1]).any(axis=1)
+        flag = (a0 + i == 0) | diff[i] | edge
+        out_row.append(np.full(int(flag.sum()), r, np.int32))
+        out_col.append((a0 + i[flag]).astype(np.int32))
+        out_sk.append(mins[i[flag]])
+        counts[r] += int(flag.sum())
+    if not out_row:
+        return (np.empty(0, np.int32), np.empty(0, np.int32),
+                np.empty((0, s), np.uint64), counts)
+    return (np.concatenate(out_row), np.concatenate(out_col),
+            np.concatenate(out_sk), counts)
+
+
+def _edge_rows(rng, w: int, tw: int, L: int = 2700):
+    """Rows whose window counts sit on tile edges and one off them, rows
+    of exactly w bases and one short of w, and the _repeat_rows rows (runs
+    of equal sketches across tile edges)."""
+    rep, rep_lens = _repeat_rows(rng, L)
+    lens = [w, w - 1] + [n * tw + d + w - 1 for n in (1, 2, 3) for d in (-1, 0, 1)]
+    lens = [n for n in lens if n <= L]
+    codes = rng.integers(0, 4, size=(len(lens), L)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    for i, n in enumerate(lens):
+        codes[i, n:] = 4
+    return (np.concatenate([codes, rep]),
+            np.concatenate([np.array(lens, np.int32), rep_lens]))
+
+
+@pytest.mark.parametrize("k,s,w,tw", [
+    (31, 20, 150, 512), (31, 16, 100, 512), (7, 16, 40, 512),
+    (31, 20, 31, 512), (7, 3, 7, 512), (15, 5, 47, 64), (31, 20, 150, 32),
+    (7, 16, 40, 100),
+])
+def test_kernel_walk_matches_plain_jax_and_native(k, s, w, tw):
+    """m = 1 (w = k), m not a power of two (120, 70, 34, 33), the kernel's
+    widest tile and narrower ones (more tile edges), rows at tile edges
+    +- 1, rows of exactly w and w - 1 and the _repeat_rows rows."""
+    rng = np.random.default_rng(k * 1000 + w)
+    codes, lens = _edge_rows(rng, w, tw)
+    got = _kernel_walk_np(codes, lens, k, s, w, tw)
+    assert len(got[0]) < int((lens - w + 1).clip(min=0).sum())  # runs exist
+    want = native.window_sketch(codes, lens.astype(np.int64), k, s, w)
+    plain = pw.window_run_starts_torch(torch.from_numpy(codes),
+                                       torch.from_numpy(lens), k, s, w)
+    for a, b, c in zip(got, want, plain):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(np.asarray(a).astype(np.int64).view(np.int64),
+                                      c.numpy().astype(np.int64))
+    hi, lo = window_sketches(jnp.asarray(codes), jnp.asarray(lens), k, s, w)
+    valid = np.arange(codes.shape[1] - w + 1)[None, :] < (lens - w + 1)[:, None]
+    r, c = np.nonzero(np.asarray(_change_mask(hi, lo)) & valid)
+    np.testing.assert_array_equal(got[0], r)
+    np.testing.assert_array_equal(got[1], c)
+    np.testing.assert_array_equal(got[2], _u64(hi, lo)[r, c])
+
+
+@pytest.mark.parametrize("tw,lens", [
+    (512, [1499, 149, 150, 0, 661, 662, 663, 1173, 1174, 1175]),
+    (512, [149, 0, 149]), (512, [150]), (32, [180, 181, 182, 149, 40_000]),
+    (100, list(range(140, 460, 7))),
+])
+def test_tile_table_covers_every_window(tw, lens):
+    """The wrapper's tile table (at w = 150): in row-major order, a tile
+    for each tw windows of a row, the last one partial, none for a row
+    without a window; the kernel's (row, first window) of every tile."""
+    lens = np.array(lens, np.int32)
+    tile_row, row_tile0 = _tiles_np(lens, 150, tw)
+    want = [(r, t0) for r, ln in enumerate(lens) for t0 in range(0, ln - 149, tw)]
+    got = [(int(r), (t - int(row_tile0[r])) * tw) for t, r in enumerate(tile_row)]
+    assert got == want
+    assert tile_row.dtype == row_tile0.dtype == np.int32
