@@ -29,6 +29,12 @@ Phases, any failure exits non-zero:
      phase 5 in the same five ways; then the kernel is held against its
      plain version on the inputs of the largest chunk of the first batch,
      and both are timed;
+  5c. host: the same align on the `host` engine (GROOT_ENGINE=host,
+     --device cuda: the match-bits kernel) must equal the hash run of phase
+     5 in the same five ways; then the kernel is held against its plain
+     version, bit for bit, at every graph the first batch touches, and at
+     the largest of those calls the kernel, the plain version and cuDNN's
+     conv1d on the same one-hots (the library call) are timed;
   6. haplotype: `haplotype --device cuda` (the EM kernel) and `--device
      cpu` on the device run's graphs call the same alleles; the kernel
      gives its plain version's iteration counts (on the card and on the
@@ -49,7 +55,7 @@ Phases, any failure exits non-zero:
   9. processes: `python -m groot_tpu_torch.parallel.nproc` on phase 4's
      index and reads, with 2 gloo ranks and with 1 NCCL rank on the card
      (NCCL refuses two ranks on one card), each must print OK;
-  10. trace: index, align (device and cascade engines), haplotype and the
+  10. trace: index, align (device, cascade and host engines), haplotype and the
      data-plane step on the card once more under torch.profiler, for the
      card's busy share of each run's wall time and each kernel's device
      time; each kernel's traced launches beside its wrapper's count for the
@@ -63,8 +69,8 @@ em_batched equal iteration counts and alphas within 1e-5 of max(1, |alpha|),
 as summation orders may differ; for lsh_query contain within 1 ulp;
 `baseline_ms`, `baseline_device_ms`, and for lsh_query at t = 0.97 the
 banded mode's `banded_timed_device_ms`, `banded_baseline_device_ms`).
-Every kernel must launch in the run of its command or path (4, 5, 5b, 6 or
-8), counted from 0 just before it. The last line is {"ok": true, "device":
+Every kernel must launch in the run of its command or path (4, 5, 5b, 5c, 6
+or 8), counted from 0 just before it. The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launches, errors,
 times (`ms`: CUDA events over back-to-back calls, the Python wrapper
 included; `device_ms`: the device time a launch in phase 10's traces, all
@@ -956,6 +962,7 @@ KERNEL_FUNCS = {
     "lsh_query": ("lsh_query_kernel",),
     "weight_scatter": ("weight_count_kernel", "weight_pairs_kernel"),
     "pair_cascade": ("pair_cascade_kernel",),
+    "match_bits": ("match_bits_kernel",),
 }
 
 
@@ -1056,7 +1063,7 @@ def _traced(fn):
 
 
 def traced_runs(work: str, fq: str, dev, plane_fn) -> dict:
-    """index, align (device and cascade engines), haplotype and the
+    """index, align (device, cascade and host engines), haplotype and the
     data-plane step (plane_fn) on the card once more, each under
     torch.profiler: the card's busy share of the run's wall time and each
     port kernel's device time. Returns {kernel: (launches, device us)}
@@ -1066,6 +1073,7 @@ def traced_runs(work: str, fq: str, dev, plane_fn) -> dict:
         "index": lambda: _index(work, "idx-traced", dev.type),
         "align": lambda: align_and_report(work, fq, "device", dev.type),
         "align cascade": lambda: align_and_report(work, fq, "cascade", dev.type),
+        "align host": lambda: align_and_report(work, fq, "host", dev.type),
         "haplotype": lambda: _haplotype(work, "haplo-traced", dev.type),
         "data plane": plane_fn,
     }
@@ -1178,45 +1186,181 @@ def cascade_phase(work: str, fq: str, dev, hash_run) -> dict:
     return launches
 
 
-def match_bits_probe(work: str, fq: str, dev) -> None:
-    """The `host` engine's match volumes (align.aligner._match_bits, a
-    torch conv1d: no hand kernel) on the card for the graph with the most
-    reads in the first batch, timed with its host packing and copies, and
-    its bound: path one-hot, read kernels and match bits moved once; one
-    multiply-add per (kernel, path row, offset, base, channel), over the
-    reads' real bases and the rows' real positions."""
+def host_phase(work: str, fq: str, dev, hash_run) -> dict:
+    """`align --device cuda` on the `host` engine (GROOT_ENGINE=host: the
+    match-bits kernel for every graph's match volumes) over the same reads
+    and index: the kernel must launch, and the run must equal the hash run
+    of phase 5."""
+    from groot_tpu_torch import _build
     from groot_tpu_torch.align.aligner import GraphAligner
-    from groot_tpu_torch.align.batch_host import WindowTables
+
+    # host clock in the aligner's two stages, summed over the run
+    spent = {"align_read_batch": 0.0, "_batch_match_bits": 0.0}
+    saved = {n: getattr(GraphAligner, n) for n in spent}
+
+    def timed(name):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return saved[name](*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return run
+
+    _build.reset_counts()
+    for n in spent:
+        setattr(GraphAligner, n, timed(n))
+    try:
+        res, bam, rows, dt = align_and_report(work, fq, "host", dev.type)
+    finally:
+        for n, fn in saved.items():
+            setattr(GraphAligner, n, fn)
+    launches = {"match_bits": _launches(["khf_sketch", "match_bits"])["match_bits"]}
+    st = res.stats
+    mb, arb = spent["_batch_match_bits"], spent["align_read_batch"]
+    _say(f"host run: {st.received} reads, {st.mapped} mapped, "
+         f"{st.alignment_count} alignments in {dt:.2f}s = "
+         f"{st.received / dt:.0f} reads/s (align command, setup included), "
+         f"{launches['match_bits']} match_bits launches; host clock: match "
+         f"volumes {mb:.2f}s (codes, copies, kernel, bits back), weights + "
+         f"cascade + records {arb - mb:.2f}s, the rest of the command (ingest, "
+         f"sketch, query, grouping, BAM) {dt - arb:.2f}s")
+    _same_as_hash("host", res, bam, rows, hash_run)
+    return launches
+
+
+def _walk_ands(path, var, var_len):
+    """csrc/match_bits.cu's loop run in torch on the same inputs: (its
+    bits, the ANDs its early exit leaves: per (variant, row, word) the bases
+    up to the one that leaves the word 0, or all of them)."""
+    dev = path.device
+    (P, Lp), (Kv, Lr) = path.shape, var.shape
+    W = Lp - Lr + 1
+    W32 = -(-W // 32)
+    NWp = W32 + -(-Lr // 32)
+    x = torch.arange(NWp * 32, device=dev)
+    c = path.long()[:, x.clamp(max=Lp - 1)]
+    inside = x < Lp
+    wild = inside & (c >= 4)
+    preds = torch.stack([(inside & (c == b)) | wild for b in range(4)] + [wild], 1)
+    planes = (preds.view(P, 5, NWp, 32).long()
+              << torch.arange(32, device=dev)).sum(-1)        # [P, 5, NWp]
+    n = var_len.long()
+    ok = (n >= 0) & (n <= Lr)
+    acc = torch.where(ok, 0xFFFFFFFF, 0)[:, None, None].repeat(1, P, W32)
+    w = torch.arange(W32, device=dev)
+    ands = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(Lr):
+        live = (acc != 0) & (j < n)[:, None, None]
+        ands += live.sum()
+        pl = planes[:, var[:, j].long().clamp(max=4)]          # [P, Kv, NWp]
+        lo = pl[..., w + (j >> 5)]
+        hi = pl[..., w + (j >> 5) + 1]
+        sh = (((hi << 32) | lo) >> (j & 31)) & 0xFFFFFFFF
+        acc = torch.where(live, acc & sh.permute(1, 0, 2), acc)
+    if W % 32:
+        acc[..., -1] &= (1 << (W % 32)) - 1
+    return acc, int(ands)
+
+
+def _all_device_ms(fn, iters: int = 20):
+    """Device milliseconds a call of `fn`, every kernel and copy it runs
+    summed, from a torch.profiler trace; None when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _absorb()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in _device_events(prof)
+             if ABSORB_KERNEL not in e.name)
+    return us / 1e3 / iters if us else None
+
+
+def match_bits_parity(work: str, fq: str, dev) -> dict:
+    """The match-bits kernel against its plain version on the card, bit for
+    bit, at every graph the first batch of the reads touches (its reads
+    grouped per graph as the host engine groups them, the inputs as its
+    aligner builds them); at the largest call the kernel, the plain version
+    and cuDNN's conv1d alone on the same one-hots (exact_conv, the library
+    call) are timed, and the kernel's loop is walked in torch for its bits
+    and its ANDs."""
+    from groot_tpu_torch.align import aligner
     from groot_tpu_torch.config import Info
     from groot_tpu_torch.index.lshe import ContainmentIndex
+    from groot_tpu_torch.ops.sketch import sketch_reads_u64
     from groot_tpu_torch.pipeline import align_pipeline as ap
 
     idx = os.path.join(work, "idx")
     info = Info.load(os.path.join(idx, "groot.gg"))
-    index = ContainmentIndex.load(os.path.join(idx, "groot.lshe"))
-    info.attach_db(index)
-    tables = WindowTables(index, info.store)
+    info.attach_db(ContainmentIndex.load(os.path.join(idx, "groot.lshe")))
     batch = next(ap.batch_reads_native([fq], ap.DEFAULT_BATCH))
     kc = (batch.lengths - K + 1).astype(np.int32)
-    rows, wins, combo_start = ap._compute_hits(
-        info, batch, kc, K, S, 0.99, tables, dev
-    )
-    gids = tables.w_graph[wins[combo_start]]
-    gid = int(np.bincount(gids).argmax())
-    reads = [batch.read(int(r)) for r in rows[combo_start][gids == gid]]
-    ga = GraphAligner(info.store, device=dev)
-    gp = ga.pack(info.store[gid])
-    bits = ga._batch_match_bits(gp, reads)
-    ms = _time_ms(lambda: ga._batch_match_bits(gp, reads), dev, 5)
-    R, _six, P, W32 = bits.shape
-    n_read = sum(len(r.seq) for r in reads)    # real bases, not Lr's padding
-    n_path = int(gp.lengths.sum())             # real path positions
-    bound = _bound(4 * (n_path * 5 + 6 * n_read * 5 + 6 * R * P * W32),
-                   2 * 6 * n_read * 5 * n_path)
-    _say(f"_match_bits (host engine, torch conv1d) on graph {gid}: {R} reads, "
-         f"{P} path rows of <= {int(gp.lengths.max())} bp: {ms:.4f} ms with "
-         f"packing and copies; bound {bound['bound_ms']:.6f} ms "
-         f"({bound['bound_by']})")
+    q64 = sketch_reads_u64(batch.codes, batch.lengths, K, S, dev)
+    per_graph = {}
+    for i, res in enumerate(info.db.query_batch(q64, kc, 0.99)[: batch.n_valid]):
+        for gid in res:
+            per_graph.setdefault(gid, []).append(batch.read(i))
+    ga = aligner.GraphAligner(info.store, device=dev)
+    calls, n_words = [], 0
+    for gid in sorted(per_graph):
+        args = tuple(torch.from_numpy(a).to(dev) for a in
+                     ga.match_inputs(ga.pack(info.store[gid]), per_graph[gid]))
+        got = aligner.match_bits(*args).view(torch.int32)
+        plain = aligner.match_bits_torch(*args).view(torch.int32)
+        _sync(dev)
+        _check(torch.equal(got, plain), f"match_bits graph {gid}: kernel != plain")
+        n_words += got.numel()
+        calls.append((got.numel(), gid, args))
+    _words, gid, args = max(calls, key=lambda c: c[0])
+    path, var, var_len = args
+    walk, ands = _walk_ands(*args)
+    got = aligner.match_bits(*args)
+    _check(torch.equal(got.view(torch.int32).long() & 0xFFFFFFFF, walk),
+           "match_bits: kernel != its loop walked in torch")
+    (P, Lp), (Kv, Lr) = path.shape, var.shape
+    W = Lp - Lr + 1
+    W32 = got.shape[-1]
+    path_oh = aligner.path_onehot(path).permute(0, 2, 1).contiguous()
+    live = torch.arange(Lr, device=dev)[None, :] < var_len[:, None].long()
+    kern = (torch.nn.functional.one_hot(var.long().clamp(max=4), 5).float()
+            * live[..., None]).permute(0, 2, 1).contiguous()
+
+    def conv():
+        with aligner.exact_conv():
+            return torch.nn.functional.conv1d(path_oh, kern)
+
+    kfn = lambda: aligner.match_bits(*args)  # noqa: E731
+    pfn = lambda: aligner.match_bits_torch(*args)  # noqa: E731
+    cuda = dev.type == "cuda"
+    m = {"max_abs_err": 0.0, "ms": _time_ms(kfn, dev),
+         "plain_ms": _time_ms(pfn, dev, 5), "library_ms": _time_ms(conv, dev),
+         "timed_device_ms": _device_ms(kfn, "match_bits") if cuda else None,
+         "plain_device_ms": _all_device_ms(pfn, 5) if cuda else None,
+         "library_device_ms": _all_device_ms(conv) if cuda else None}
+    # bytes: the rows' real path bases, the variants' real bases and their
+    # lengths in, the bits out; ops: one AND a (variant, row, word, base)
+    # that the early exit leaves (this run's data; the count without the
+    # exit and the conv's multiply-adds are printed beside it)
+    n_path = int(ga.pack(info.store[gid]).lengths.sum())
+    n_var = int(var_len.clamp(min=0, max=Lr).sum())
+    bound = _bound(n_path + n_var + 4 * Kv + 4 * got.numel(), ands)
+    full = _bound(0, n_var * P * W32)
+    conv_b = _bound(0, 2 * 5 * Lr * Kv * P * W)
+    _say(f"match_bits on the first batch: {len(calls)} graphs ({n_words} words), "
+         f"each bit-equal to plain; the largest, graph {gid}: {Kv // 6} reads x 6 "
+         f"variants, {P} rows of Lp {Lp}, Lr {Lr}, W32 {W32}, {ands} ANDs walked "
+         f"(equal to the kernel's bits); kernel {m['ms']:.4f} ms (device "
+         f"{m['timed_device_ms']} ms), plain {m['plain_ms']:.4f} ms (device "
+         f"{m['plain_device_ms']} ms), conv1d {m['library_ms']:.4f} ms (device "
+         f"{m['library_device_ms']} ms); bound {bound['bound_ms']:.6f} ms "
+         f"({bound['bound_by']}: {bound['bytes']} bytes, {ands} ops); without the "
+         f"early exit {full['bound_ms']:.6f} ms ({full['ops']} ANDs); the conv's "
+         f"{conv_b['ops']} flops {conv_b['bound_ms']:.6f} ms")
+    return {**m, **bound}
 
 
 def cascade_parity(work: str, fq: str, dev) -> dict:
@@ -1520,7 +1664,8 @@ def main(argv=None) -> int:
         launches.update(e2e_launches)
         launches.update(cascade_phase(work, fq, dev, hash_run))
         kernels["pair_cascade"] = cascade_parity(work, fq, dev)
-        match_bits_probe(work, fq, dev)
+        launches.update(host_phase(work, fq, dev, hash_run))
+        kernels["match_bits"] = match_bits_parity(work, fq, dev)
         em_launches, kernels["em_batched"] = haplotype_phase(work, dev, base)
         launches.update(em_launches)
         accuracy_phase(work)
@@ -1551,7 +1696,9 @@ def main(argv=None) -> int:
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
             **{k: m[k] for k in ("baseline_ms", "baseline_device_ms",
                                  "banded_timed_device_ms",
-                                 "banded_baseline_device_ms") if k in m},
+                                 "banded_baseline_device_ms",
+                                 "plain_device_ms", "library_device_ms")
+               if k in m},
         })
     _say(smi)
     _say(json.dumps({"kernels": rows}))

@@ -1,4 +1,4 @@
-"""Exact graph alignment by one-hot cross-correlation (the `host` engine).
+"""Exact graph alignment over match volumes (the `host` engine).
 
 Counterpart of groot_tpu/align/aligner.py. Reference: GrootGraph.AlignRead
 (src/graph/alignment.go) runs a hierarchical cascade per (read,
@@ -17,8 +17,10 @@ cascade becomes lookups into a boolean match volume
 
     M[r, p, o] = read r matches path p starting at offset o
 
-computed for a read batch by one cross-correlation of one-hot codes
-(`_match_bits`, a float32 torch conv1d on the aligner's device):
+computed for a read batch by `match_bits` from u8 codes: on a card the
+match-bits kernel (csrc/match_bits.cu: bit planes of each path row, ANDed
+along each read variant), on the CPU its plain version `match_bits_torch`,
+the reference's one-hot cross-correlation (`_match_bits`):
 
     count[r, p, o] = sum_j onehot5(read)[r, j, :] . onehot5(path)[p, o+j, :]
     M = (count == effective_read_len)
@@ -38,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._build import resolve_device
+from .._build import I, Kernel, P, ptr, resolve_device
 from ..graph.grootgraph import GrootGraph
 from ..graph.pack import pack_graph_paths
 from ..io.fastx import FastqRead
@@ -46,6 +48,12 @@ from ..ops.nthash import ASCII_TO_CODE, CODE_TO_ASCII, RC_CODE_NP
 
 MAX_CLIP = 1  # alignment.go:16
 NODE_SHUFFLES = 10  # alignment.go:52
+
+MATCH_BITS = Kernel(
+    "match_bits", "groot_match_bits", (P, P, P, I, I, I, I, P),
+    source="groot_tpu_torch/csrc/match_bits.cu",
+    replaces="groot_tpu/align/aligner.py:121",
+)
 
 
 @dataclass
@@ -84,22 +92,30 @@ class _GraphPack:
         for pid in self.path_ids:
             nodes = graph.path_nodes(pid)
             self.terminal_free[pid] = len(nodes[-1].out_edges) == 0 if nodes else False
-        self._onehot_cache: Dict[int, np.ndarray] = {}
+        self._codes_cache: Dict[int, np.ndarray] = {}
 
-    def onehot(self, extra_pad: int) -> np.ndarray:
-        """[P, L+extra_pad, 5] float32 one-hot with wildcard N/pad rows."""
-        oh = self._onehot_cache.get(extra_pad)
-        if oh is None:
+    def path_codes(self, extra_pad: int) -> np.ndarray:
+        """u8 [P, L+extra_pad]: the path rows' codes, padded with N (4)."""
+        padded = self._codes_cache.get(extra_pad)
+        if padded is None:
             codes = self.packed.codes
             P, L = codes.shape
             padded = np.full((P, L + extra_pad), 4, dtype=np.uint8)
             padded[:, :L] = codes
-            oh = np.zeros(padded.shape + (5,), dtype=np.float32)
-            for b in range(4):
-                oh[:, :, b] = padded == b
-            oh[padded == 4] = 1.0  # N in graph or padding: matches anything
-            self._onehot_cache[extra_pad] = oh
-        return oh
+            self._codes_cache[extra_pad] = padded
+        return padded
+
+    def onehot(self, extra_pad: int) -> np.ndarray:
+        """[P, L+extra_pad, 5] float32 one-hot with wildcard N/pad rows."""
+        return path_onehot(torch.from_numpy(self.path_codes(extra_pad))).numpy()
+
+
+def path_onehot(codes: torch.Tensor) -> torch.Tensor:
+    """u8 path codes [P, L] -> float32 [P, L, 5] one-hots; an N or pad
+    (code >= 4) is a wildcard row of all ones: it matches anything."""
+    c = codes.long()
+    wild = c >= 4
+    return torch.stack([(c == b) | wild for b in range(4)] + [wild], dim=-1).float()
 
 
 @contextlib.contextmanager
@@ -133,6 +149,60 @@ def _match_bits(
     shifts = torch.arange(32, device=match.device, dtype=torch.int64)
     words = (match.reshape(K, P, W32, 32).long() << shifts).sum(-1)
     return words.cpu().numpy().astype(np.uint32)
+
+
+def match_bits_torch(path_codes: torch.Tensor, var_codes: torch.Tensor,
+                     var_len: torch.Tensor) -> torch.Tensor:
+    """The plain version of `match_bits`: the one-hots of the codes (a
+    variant's rows at and past var_len zero, a read N its column 4), then
+    the reference's correlation `_match_bits`, on the inputs' device."""
+    dev = path_codes.device
+    (P, Lp), (K, Lr) = path_codes.shape, var_codes.shape
+    W32 = -(-(Lp - Lr + 1) // 32)
+    if not (P and K):
+        return torch.zeros((K, P, W32), dtype=torch.int32, device=dev).view(torch.uint32)
+    live = torch.arange(Lr, device=dev)[None, :] < var_len[:, None].long()
+    kern = torch.nn.functional.one_hot(var_codes.long().clamp(max=4), 5).float()
+    bits = _match_bits(path_onehot(path_codes), kern * live[..., None], var_len)
+    return torch.from_numpy(bits.view(np.int32)).to(dev).view(torch.uint32)
+
+
+def match_bits(path_codes: torch.Tensor, var_codes: torch.Tensor,
+               var_len: torch.Tensor) -> torch.Tensor:
+    """Packed match volumes: u8 path codes [P, Lp] (pad = 4), u8 variant
+    codes [K, Lr] (N = 4), int32 var_len [K] (the variant's real bases: 0
+    matches at every offset, below 0 or above Lr never) -> u32 [K, P,
+    ceil(W/32)], W = Lp - Lr + 1, bit o of word w the match at offset
+    32w + o, as `_match_bits` gives it on the one-hots. A CPU tensor takes
+    the plain version; a CUDA tensor launches the match-bits kernel, or
+    raises."""
+    if path_codes.dtype != torch.uint8 or path_codes.dim() != 2:
+        raise TypeError(f"path_codes must be uint8 [P, Lp], got {path_codes.dtype} "
+                        f"{tuple(path_codes.shape)}")
+    if var_codes.dtype != torch.uint8 or var_codes.dim() != 2:
+        raise TypeError(f"var_codes must be uint8 [K, Lr], got {var_codes.dtype} "
+                        f"{tuple(var_codes.shape)}")
+    (P, Lp), (K, Lr) = path_codes.shape, var_codes.shape
+    if var_len.dtype != torch.int32 or var_len.shape != (K,):
+        raise TypeError("var_len must be int32 [K]")
+    dev = path_codes.device
+    if var_codes.device != dev or var_len.device != dev:
+        raise ValueError("path_codes, var_codes and var_len must be on one device")
+    if not 1 <= Lr <= Lp:
+        raise ValueError(f"variant width {Lr}: want 1 .. the path width {Lp}")
+    if dev.type == "cpu":
+        return match_bits_torch(path_codes, var_codes, var_len)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if P > 65535:
+        raise ValueError(f"match_bits kernel: {P} path rows, at most 65,535")
+    path_codes, var_codes, var_len = (
+        t.contiguous() for t in (path_codes, var_codes, var_len))
+    out = torch.empty((K, P, -(-(Lp - Lr + 1) // 32)), dtype=torch.int32, device=dev)
+    if P and K:
+        MATCH_BITS.launch(dev, ptr(path_codes), ptr(var_codes), ptr(var_len),
+                          P, Lp, K, Lr, ptr(out))
+    return out.view(torch.uint32)
 
 
 class GraphAligner:
@@ -195,44 +265,44 @@ class GraphAligner:
         return out
 
     # ------------------------------------------------------------------
-    def _batch_match_bits(self, gp: _GraphPack, reads: List[FastqRead]):
-        """Match volumes for a read batch: bits [R, 6, P, W32]; variant rows
-        are (fwd|rc) x (full|clip-start|clip-end). Read kernels are padded to
-        a multiple of 32 bases with zero rows (which match nothing)."""
+    @staticmethod
+    def match_inputs(gp: _GraphPack, reads: List[FastqRead]):
+        """The match-bits inputs of a read batch: path codes u8 [P, L + Lr_b]
+        (the rows padded with Lr_b columns of N, Lr_b the longest read
+        rounded up to a multiple of 32, at least 32), variant codes u8
+        [6R, Lr_b] and var_len int32 [6R]. A read's six variants are (fwd|rc)
+        x (full | clip-start: read[1:] | clip-end: read[:Lr-1])."""
         R = len(reads)
-        Lr_max = max(len(r.seq) for r in reads)
-        Lr_b = -(-max(Lr_max, 32) // 32) * 32
-        kernels = np.zeros((R * 6, Lr_b, 5), dtype=np.float32)
-        eff = np.full(R * 6, -1, dtype=np.int32)  # -1 never matches
-        for r, read in enumerate(reads):
-            codes = ASCII_TO_CODE[np.frombuffer(read.seq, dtype=np.uint8)]
-            rc = RC_CODE_NP[codes][::-1]
-            Lr = len(codes)
-            for o, cs in enumerate((codes, rc)):
-                oh = np.zeros((Lr_b, 5), dtype=np.float32)
-                oh[np.arange(Lr), cs] = 1.0
-                base = r * 6 + o * 3
-                kernels[base + 0] = oh
-                eff[base + 0] = Lr
-                # clip-start: read[1:] aligned at the probe offset
-                oh_s = np.zeros_like(oh)
-                oh_s[: Lr - 1] = oh[1:Lr]
-                kernels[base + 1] = oh_s
-                eff[base + 1] = Lr - 1
-                # clip-end: drop the last base
-                oh_e = oh.copy()
-                oh_e[Lr - 1] = 0.0
-                kernels[base + 2] = oh_e
-                eff[base + 2] = Lr - 1
+        lens = np.fromiter((len(r.seq) for r in reads), np.int64, R)
+        Lr_b = -(-max(int(lens.max()), 32) // 32) * 32
+        col = np.arange(Lr_b)
+        fwd = np.full((R, Lr_b), 4, dtype=np.uint8)
+        fwd[col[None, :] < lens[:, None]] = ASCII_TO_CODE[
+            np.frombuffer(b"".join(r.seq for r in reads), dtype=np.uint8)]
+        src = lens[:, None] - 1 - col[None, :]  # rc[j] = comp(read[Lr-1-j])
+        rc = np.where(src >= 0,
+                      RC_CODE_NP[np.take_along_axis(fwd, src.clip(0), axis=1)], 4)
+        var = np.full((R, 2, 3, Lr_b), 4, dtype=np.uint8)
+        var_len = np.empty((R, 2, 3), dtype=np.int32)
+        for o, cs in enumerate((fwd, rc)):
+            var[:, o, 0] = cs
+            var[:, o, 1, :-1] = cs[:, 1:]
+            var[:, o, 2] = cs  # its last real base lies past var_len
+            var_len[:, o, 0] = lens
+            var_len[:, o, 1:] = (lens - 1)[:, None]
+        return (gp.path_codes(Lr_b), var.reshape(R * 6, Lr_b),
+                var_len.reshape(R * 6))
+
+    def _batch_match_bits(self, gp: _GraphPack, reads: List[FastqRead]):
+        """Match volumes for a read batch: bits u32 [R, 6, P, W32], from
+        `match_bits` on the aligner's device."""
+        path, var, var_len = self.match_inputs(gp, reads)
         dev = self.device
-        path_oh = gp.onehot(extra_pad=Lr_b)
-        bits = _match_bits(
-            torch.from_numpy(path_oh).to(dev),
-            torch.from_numpy(kernels).to(dev),
-            torch.from_numpy(eff).to(dev),
-        )
-        P = path_oh.shape[0]
-        return bits.reshape(R, 6, P, bits.shape[-1])
+        bits = match_bits(torch.from_numpy(path).to(dev),
+                          torch.from_numpy(var).to(dev),
+                          torch.from_numpy(var_len).to(dev))
+        bits = bits.view(torch.int32).cpu().numpy().view(np.uint32)
+        return bits.reshape(len(reads), 6, path.shape[0], bits.shape[-1])
 
     # ------------------------------------------------------------------
     @staticmethod

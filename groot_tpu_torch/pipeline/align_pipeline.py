@@ -16,8 +16,9 @@ GROOT_ENGINE (default `device`):
            host tail;
   hash   — the host hash-join cascade (align.hash_join), sketching with
            the native runtime;
-  host   — the legacy per-Key aligner (align.aligner), its match volumes a
-           torch conv on `device`;
+  host   — the legacy per-Key aligner (align.aligner), its match volumes
+           from the match-bits kernel on `device` (the plain one-hot conv on
+           the CPU);
   cascade — the match-volume cascade (align.device_cascade): batches are
            sketched with the KHF-sketch kernel on `device`, every chunk of
            (read, mapping) pairs runs the pair-cascade kernel, and the host

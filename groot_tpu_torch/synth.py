@@ -2,11 +2,11 @@
 
 Used by the port's tests (a few small clusters) and by chip_smoke.py (a
 database at the scale of arg-annot.90: 583 clusters, ~1,700 alleles).
-`cascade_case` makes the inputs of one pair-cascade call directly. A
-cluster is a founder sequence plus alleles at most `max_div` divergent from
-it (substitutions, plus a few short deletions that become MSA gaps); each
-cluster is written as an aligned FASTA `cluster-N.msa`, the layout `index`
-reads. Reads are sampled from the ungapped alleles with numpy; a FASTQ may
+`cascade_case` and `match_bits_case` make the inputs of one pair-cascade
+or match-bits call directly. A cluster is a founder sequence plus alleles
+at most `max_div` divergent from it (substitutions, plus a few short
+deletions that become MSA gaps); each cluster is written as an aligned
+FASTA `cluster-N.msa`, the layout `index` reads. Reads are sampled from the ungapped alleles with numpy; a FASTQ may
 name each read the way bbmap's randomreads does, so that the `accuracy`
 command can score an alignment of it.
 """
@@ -323,3 +323,45 @@ def em_batch(seed: int, n_paths: Sequence[int], E: int, P: Optional[int] = None,
             20, 200, size=n_ec)
         counts[g, :n_ec][rng.random(n_ec) < zero_frac] = 0.0
     return membership, counts, np.asarray(n_paths, np.int32)
+
+
+def match_bits_case(seed: int, P: int = 3, Lp: int = 200, K: int = 40,
+                    Lr: int = 45, pad: int = 0, n_frac: float = 0.02,
+                    n_run: int = 0, zero_frac: float = 0.1,
+                    pad_frac: float = 0.1):
+    """Seeded inputs of one match-bits call (`align.aligner.match_bits`) as
+    numpy arrays: u8 path codes [P, Lp] (rows that share a founder, a few
+    substitutions each, an `n_frac` share of Ns, a run of `n_run` Ns in
+    row 0, the last `pad` columns N as the aligner pads them), u8 variant
+    codes [K, Lr] and int32 var_len [K]. Most variants are cut from a row at
+    a random offset (some with a base changed or an N), the rest are random;
+    var_len is mostly 1..Lr, a `zero_frac` share 0 (matches everywhere) and
+    a `pad_frac` share -1 (padding, never matches)."""
+    rng = np.random.default_rng(seed)
+    real = Lp - pad
+    founder = rng.integers(0, 4, real).astype(np.uint8)
+    path = np.full((P, Lp), 4, np.uint8)
+    for p in range(P):
+        row = founder.copy()
+        sub = rng.random(real) < 0.02
+        row[sub] = rng.integers(0, 4, int(sub.sum()))
+        row[rng.random(real) < n_frac] = 4
+        path[p, :real] = row
+    if n_run:
+        at = int(rng.integers(0, max(real - n_run, 1)))
+        path[0, at:at + n_run] = 4
+    var = rng.integers(0, 4, (K, Lr)).astype(np.uint8)
+    var_len = rng.integers(1, Lr + 1, K).astype(np.int32)
+    for k in range(K):
+        if rng.random() < 0.8:
+            o = int(rng.integers(0, Lp - Lr + 1))
+            var[k] = np.where(path[k % P, o:o + Lr] >= 4,
+                              rng.integers(0, 4, Lr), path[k % P, o:o + Lr])
+            if rng.random() < 0.3:
+                var[k, rng.integers(0, Lr)] = rng.integers(0, 4)
+        if rng.random() < 0.2:
+            var[k, rng.integers(0, Lr)] = 4
+    u = rng.random(K)
+    var_len[u < zero_frac] = 0
+    var_len[u > 1 - pad_frac] = -1
+    return path, var, var_len

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from groot_tpu_torch import _build, synth
+from groot_tpu_torch.align import aligner
 from groot_tpu_torch.align import device_cascade as dc
 from groot_tpu_torch.align import device_join as dj
 from groot_tpu_torch.align.batch_host import WindowTables
@@ -56,6 +57,7 @@ def test_kernel_registry_names_sources_and_replaced_functions():
         "lsh_query": "def _query_device",
         "weight_scatter": "def align_step",
         "pair_cascade": "def _pair_cascade",
+        "match_bits": "def _match_bits",
     }
     assert set(_build.KERNELS) == set(want)
     for name, kern in _build.KERNELS.items():
@@ -815,5 +817,80 @@ def test_cascade_aligner_on_card_matches_cpu(cuda, tmp_path):
         w = [n.kmer_freq for _g, g in sorted(store.items()) for n in g.sorted_nodes]
         out[str(dev)] = (recs, w, launched)
     assert out["cuda"][2] > 0 and out["cpu"][2] == 0
+    assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) > 50
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-12)
+
+
+MATCH_BITS_CASES = [
+    dict(seed=1),                                     # Lr 45, W 156: neither a multiple of 32
+    dict(seed=2, P=1, Lp=97, K=30, Lr=32),            # one path row
+    dict(seed=3, P=5, Lp=287, K=24, Lr=32),           # W = 256, a multiple of 32
+    dict(seed=5, P=2, Lp=120, K=20, Lr=1),            # one-column variants: eff 1 and 0
+    dict(seed=6, P=3, Lp=300, K=30, Lr=64, n_run=80),  # a run of path Ns
+    dict(seed=7, P=2, Lp=70, K=16, Lr=70),            # W = 1
+    dict(seed=8, P=3, Lp=200, K=40, Lr=33, n_frac=0.2, zero_frac=0.3,
+         pad_frac=0.3),                               # many Ns, eff 0 and -1
+    dict(seed=9, P=7, Lp=1660, K=1200, Lr=160, pad=160),  # the main path: 200 reads, 7 rows
+    dict(seed=10, P=24, Lp=3160, K=3000, Lr=160, pad=160, n_frac=0.001),  # a wide graph
+    dict(seed=11, P=2, Lp=9000, K=40, Lr=160, pad=160),  # W32 > 256: a variant a block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MATCH_BITS_CASES)
+def test_match_bits_kernel_matches_plain(cuda, case):
+    """Bit for bit the plain version's, on the card and on the CPU: N in
+    paths and reads, Lr and W not multiples of 32, P = 1, eff 0 and -1,
+    W = 1, the main path's widths and a wide graph."""
+    arrays = synth.match_bits_case(**case)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = aligner.MATCH_BITS.launches
+    got = aligner.match_bits(*args)
+    torch.cuda.synchronize()
+    assert aligner.MATCH_BITS.launches == before + 1
+    got = got.view(torch.int32).cpu()
+    assert torch.equal(got, aligner.match_bits_torch(*args).view(torch.int32).cpu())
+    assert torch.equal(got, aligner.match_bits_torch(
+        *(torch.from_numpy(a) for a in arrays)).view(torch.int32))
+    assert bool(got.any())
+
+
+@pytest.mark.cuda
+def test_host_aligner_on_card_matches_cpu(cuda, tmp_path):
+    """The `host` engine's align_read_batch on the card (the match-bits
+    kernel) equals the CPU's (the plain version): records, mappings
+    weighted and node weights."""
+    alleles = synth.tiny_db(str(tmp_path / "msa"))
+    run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+                   index_dir=str(tmp_path / "idx")), str(tmp_path / "msa"), "cpu")
+    info = Info.load(str(tmp_path / "idx" / "groot.gg"))
+    index = ContainmentIndex.load(str(tmp_path / "idx" / "groot.lshe"))
+    seqs, _which, _starts = synth.sample_reads(
+        np.random.default_rng(4), alleles, 300, lengths=(60, 100, 150),
+        n_frac=0.05, tail_frac=0.2,
+    )
+    reads = [FastqRead(id=b"@h%d" % i, seq=s, qual=b"I" * len(s))
+             for i, s in enumerate(seqs)]
+    batch = _make_batch(reads)
+    kc = (batch.lengths - K + 1).astype(np.int32)
+    q64 = khf_sketch(torch.from_numpy(batch.codes).to(cuda),
+                     torch.from_numpy(batch.lengths).to(cuda), K, S)
+    hits = index.query_batch(q64.cpu().numpy().view(np.uint64), kc, 0.99)
+    per_graph = {}
+    for read, res, n in zip(reads, hits, kc):
+        for gid, keys in res.items():
+            per_graph.setdefault(gid, []).append((read, keys, float(n)))
+    out = {}
+    for dev in (cuda, "cpu"):
+        store = copy.deepcopy(info.store)
+        al = aligner.GraphAligner(store, device=dev)
+        before = aligner.MATCH_BITS.launches
+        recs = [vars(r) for gid in sorted(per_graph)
+                for records, _n in al.align_read_batch(store[gid], per_graph[gid])
+                for r in records]
+        launched = aligner.MATCH_BITS.launches - before
+        w = [n.kmer_freq for _g, g in sorted(store.items()) for n in g.sorted_nodes]
+        out[str(dev)] = (recs, w, launched)
+    assert out["cuda"][2] == len(per_graph) and out["cpu"][2] == 0
     assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) > 50
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-12)
