@@ -30,11 +30,14 @@ Phases, any failure exits non-zero:
      plain version on the inputs of the largest chunk of the first batch,
      and both are timed;
   5c. host: the same align on the `host` engine (GROOT_ENGINE=host,
-     --device cuda: the match-bits kernel) must equal the hash run of phase
-     5 in the same five ways; then the kernel is held against its plain
-     version, bit for bit, at every graph the first batch touches, and at
-     the largest of those calls the kernel, the plain version and cuDNN's
-     conv1d on the same one-hots (the library call) are timed;
+     --device cuda: one match-bits launch a read batch for every graph it
+     touches) must equal the hash run of phase 5 in the same five ways,
+     with at most one launch a batch, and the host clock of the match
+     volumes, the cascade and the rest is printed; then ONE launch on the
+     whole first batch is held against the plain version, bit for bit, at
+     every graph, and against the kernel's loop walked in torch; the
+     launch, the plain version and cuDNN's conv1d on the same one-hots
+     summed over the batch's graphs (the library call) are timed;
   6. haplotype: `haplotype --device cuda` (the EM kernel) and `--device
      cpu` on the device run's graphs call the same alleles; the kernel
      gives its plain version's iteration counts (on the card and on the
@@ -63,8 +66,10 @@ Phases, any failure exits non-zero:
      records the profiler lost (a runtime launch call with no record).
 With --baseline-csrc DIR (an earlier groot_tpu_torch/csrc, e.g. written
 out with git show), DIR's khf_sketch, read_hash, seed_scan, window_sketch,
-em_batched and lsh_query kernels are built into their own library and timed
-beside this version's at the same inputs (equal outputs required; for
+em_batched, lsh_query and match_bits kernels are built into their own
+library and timed beside this version's at the same inputs (match_bits
+with its one-graph signature, a launch a graph of the first batch, its
+times summed over the batch; equal outputs required; for
 em_batched equal iteration counts and alphas within 1e-5 of max(1, |alpha|),
 as summation orders may differ; for lsh_query contain within 1 ulp;
 `baseline_ms`, `baseline_device_ms`, and for lsh_query at t = 0.97 the
@@ -312,9 +317,20 @@ class _Baseline:
     # the earlier C signatures, device functions and wrappers of kernels
     # redesigned since: window_sketch took row offsets, a window scratch,
     # flags and tile counts, and ran three device functions
-    _ARGTYPES = {"window_sketch": ("P",) * 3 + ("I",) * 6 + ("I64",) + ("P",) * 7}
+    # match_bits took one graph's path codes [P, Lp], variant codes [K, Lr]
+    # and var_len [K], and launched once a graph
+    _ARGTYPES = {"window_sketch": ("P",) * 3 + ("I",) * 6 + ("I64",) + ("P",) * 7,
+                 "match_bits": ("P",) * 3 + ("I",) * 4 + ("P",)}
     _FUNCS = {"window_sketch": ("window_sketch_kernel", "window_scan_kernel",
                                 "window_compact_kernel")}
+
+    def earlier_signature(self, name: str) -> bool:
+        """Whether the earlier library's entry point of `name` has the C
+        signature in _ARGTYPES rather than this version's: window_sketch's
+        changed where groot_window_tile_width came in."""
+        if name == "window_sketch":
+            return not hasattr(self.lib, "groot_window_tile_width")
+        return name in self._ARGTYPES
 
     def _entry(self, name: str, types=None):
         import ctypes
@@ -369,13 +385,48 @@ class _Baseline:
         row_off = tile_off[::n_tiles]
         return out_row[:M], out_col[:M], out_sk[:M], row_off[1:] - row_off[:-1]
 
+    def match_bits(self, calls, got, off, dev) -> dict:
+        """The earlier match-bits kernel launched once a graph, as the
+        aligner called it before one launch covered a batch, on each
+        graph's inputs `calls` ([(path codes, variant codes, var_len)]): its
+        bits must equal this version's one launch (`got`, graph s at words
+        off[s]:off[s + 1]); its CUDA-event ms and its device ms, both
+        summed over the batch's graphs."""
+        from groot_tpu_torch import _build
+
+        entry = self._entry("match_bits", [getattr(_build, t)
+                                           for t in self._ARGTYPES["match_bits"]])
+
+        def fn():
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            outs = []
+            for path, var, var_len in calls:
+                (P, Lp), (Kv, Lr) = path.shape, var.shape
+                out = torch.empty((Kv, P, -(-(Lp - Lr + 1) // 32)), dtype=torch.int32,
+                                  device=dev)
+                err = entry(path.data_ptr(), var.data_ptr(), var_len.data_ptr(), P, Lp,
+                            Kv, Lr, out.data_ptr(), stream)
+                _check(err == 0, f"baseline match_bits launch failed ({err})")
+                outs.append(out.reshape(-1))
+            return outs
+
+        outs = fn()
+        _sync(dev)
+        for s, o in enumerate(outs):
+            _check(torch.equal(o, got[off[s]:off[s + 1]]),
+                   f"baseline match_bits graph {s} != this version's kernel")
+        per_launch = _device_ms(fn, "match_bits", iters=3)
+        return {"baseline_ms": _time_ms(fn, dev, 5),
+                "baseline_device_ms": per_launch * len(calls) if per_launch else None}
+
     def timed(self, name: str, fn, want, dev, same=None) -> dict:
-        """`fn` calls this version's wrapper of kernel `name` (or, for a
-        kernel in _ARGTYPES, the earlier wrapper here); run with the earlier
+        """`fn` calls this version's wrapper of kernel `name` (or, where the
+        earlier C signature differs, the earlier wrapper here); run with the earlier
         kernel its outputs must equal `want` (this version's), or pass
         `same(got, want)` where summation orders may differ; then its
         CUDA-event and device times at the same inputs."""
-        if name not in self._ARGTYPES:
+        earlier = self.earlier_signature(name)
+        if not earlier:
             plain_fn = fn
 
             def fn():
@@ -391,7 +442,8 @@ class _Baseline:
             ok = same(got, want)
         _check(ok, f"baseline {name} != this version's kernel")
         return {"baseline_ms": _time_ms(fn, dev),
-                "baseline_device_ms": _device_ms(fn, name, self._FUNCS.get(name))}
+                "baseline_device_ms": _device_ms(
+                    fn, name, self._FUNCS.get(name) if earlier else None)}
 
 
 def make_data(work: str, seed: int) -> str:
@@ -494,7 +546,9 @@ def window_parity(work: str, dev, base=None) -> dict:
          if dev.type == "cuda" else None}
     if base is not None:
         m.update(base.timed("window_sketch",
-                            lambda: base.window_sketch(c, v, K, S, W), got, dev))
+                            (lambda: base.window_sketch(c, v, K, S, W))
+                            if base.earlier_signature("window_sketch") else fn,
+                            got, dev))
     nw = int((lens - W + 1).clip(min=0).sum())
     # bytes: the rows' bases (not the padding) and lengths in, each run
     # start's row, column and S u64 minima out; ops: per k-mer the rolling
@@ -1187,16 +1241,18 @@ def cascade_phase(work: str, fq: str, dev, hash_run) -> dict:
 
 
 def host_phase(work: str, fq: str, dev, hash_run) -> dict:
-    """`align --device cuda` on the `host` engine (GROOT_ENGINE=host: the
-    match-bits kernel for every graph's match volumes) over the same reads
-    and index: the kernel must launch, and the run must equal the hash run
-    of phase 5."""
+    """`align --device cuda` on the `host` engine (GROOT_ENGINE=host: one
+    match-bits launch a read batch for every graph it touches) over the
+    same reads and index: the kernel must launch, at most once a batch, and
+    the run must equal the hash run of phase 5."""
     from groot_tpu_torch import _build
     from groot_tpu_torch.align.aligner import GraphAligner
 
-    # host clock in the aligner's two stages, summed over the run
-    spent = {"align_read_batch": 0.0, "_batch_match_bits": 0.0}
+    # host clock in the aligner's two stages, summed over the run, and the
+    # batches that reached the aligner
+    spent = {"align_graph_batches": 0.0, "_match_volumes": 0.0}
     saved = {n: getattr(GraphAligner, n) for n in spent}
+    batches = []
 
     def timed(name):
         def run(*a, **kw):
@@ -1205,6 +1261,8 @@ def host_phase(work: str, fq: str, dev, hash_run) -> dict:
                 return saved[name](*a, **kw)
             finally:
                 spent[name] += time.perf_counter() - t0
+                if name == "align_graph_batches":
+                    batches.append(len(a[1]))
         return run
 
     _build.reset_counts()
@@ -1216,50 +1274,68 @@ def host_phase(work: str, fq: str, dev, hash_run) -> dict:
         for n, fn in saved.items():
             setattr(GraphAligner, n, fn)
     launches = {"match_bits": _launches(["khf_sketch", "match_bits"])["match_bits"]}
+    n_mapping = sum(n > 0 for n in batches)
+    _check(launches["match_bits"] <= n_mapping,
+           f"match_bits launched {launches['match_bits']} times over {n_mapping} "
+           "batches that map a read: more than once a batch")
     st = res.stats
-    mb, arb = spent["_batch_match_bits"], spent["align_read_batch"]
+    mb, agb = spent["_match_volumes"], spent["align_graph_batches"]
     _say(f"host run: {st.received} reads, {st.mapped} mapped, "
          f"{st.alignment_count} alignments in {dt:.2f}s = "
          f"{st.received / dt:.0f} reads/s (align command, setup included), "
-         f"{launches['match_bits']} match_bits launches; host clock: match "
-         f"volumes {mb:.2f}s (codes, copies, kernel, bits back), weights + "
-         f"cascade + records {arb - mb:.2f}s, the rest of the command (ingest, "
-         f"sketch, query, grouping, BAM) {dt - arb:.2f}s")
+         f"{launches['match_bits']} match_bits launches over {len(batches)} "
+         f"batches ({n_mapping} that map a read; {sum(batches)} graph batches); "
+         f"host clock: match volumes {mb:.2f}s (codes, copies, kernel, bits "
+         f"back), weights + cascade + records {agb - mb:.2f}s, the rest of the "
+         f"command (ingest, sketch, query, grouping, BAM) {dt - agb:.2f}s")
     _same_as_hash("host", res, bam, rows, hash_run)
     return launches
 
 
-def _walk_ands(path, var, var_len):
-    """csrc/match_bits.cu's loop run in torch on the same inputs: (its
-    bits, the ANDs its early exit leaves: per (variant, row, word) the bases
-    up to the one that leaves the word 0, or all of them)."""
-    dev = path.device
-    (P, Lp), (Kv, Lr) = path.shape, var.shape
-    W = Lp - Lr + 1
-    W32 = -(-W // 32)
-    NWp = W32 + -(-Lr // 32)
-    x = torch.arange(NWp * 32, device=dev)
-    c = path.long()[:, x.clamp(max=Lp - 1)]
-    inside = x < Lp
-    wild = inside & (c >= 4)
-    preds = torch.stack([(inside & (c == b)) | wild for b in range(4)] + [wild], 1)
-    planes = (preds.view(P, 5, NWp, 32).long()
-              << torch.arange(32, device=dev)).sum(-1)        # [P, 5, NWp]
-    n = var_len.long()
-    ok = (n >= 0) & (n <= Lr)
-    acc = torch.where(ok, 0xFFFFFFFF, 0)[:, None, None].repeat(1, P, W32)
-    w = torch.arange(W32, device=dev)
+def _walk_ands(rows, row_off, row_len, reads, read_len, pairs, segs):
+    """csrc/match_bits.cu's loop run in torch over every (variant, path row,
+    word) of a batch (six variants a pair), in the output's order: (its
+    bits, the ANDs its early exit leaves: per item the bases up to the one
+    that leaves the word 0, or all of them). A path row is wildcard past its
+    end, as the kernel's planes are."""
+    from groot_tpu_torch.align import aligner
+
+    dev = rows.device
+    Lr = reads.shape[1]
+    s = torch.as_tensor(segs, device=dev)
+    pair0, n, row0, n_rows, W = s.unbind(1)
+    W32 = (W + 31) // 32
+    sizes = n * 6 * n_rows * W32
+    seg = torch.repeat_interleave(torch.arange(len(s), device=dev), sizes)
+    local = torch.arange(int(sizes.sum()), device=dev) - (torch.cumsum(sizes, 0) - sizes)[seg]
+    w = local % W32[seg]
+    t = local // W32[seg]
+    p = t % n_rows[seg]
+    t = t // n_rows[seg]
+    v = t % 6
+    row = row0[seg] + p
+    vid = pairs.long()[pair0[seg] + t // 6] * 6 + v
+    NW = int(W32.max()) + -(-Lr // 32) + 1
+    x = torch.arange(NW * 32, device=dev)
+    inside = x[None, :] < row_len.long()[:, None]
+    c = torch.where(inside, rows[(row_off[:, None] + x[None, :]).clamp(max=len(rows) - 1)].long(), 4)
+    preds = torch.stack([(c == b) | (c >= 4) for b in range(4)] + [c >= 4], 1)
+    planes = (preds.view(len(row_len), 5, NW, 32).long()
+              << torch.arange(32, device=dev)).sum(-1)             # [rows, 5, NW]
+    var, var_len = aligner.variant_rows(reads, read_len)
+    n_v = var_len.long()[vid]
+    acc = torch.where((n_v >= 0) & (n_v <= Lr), 0xFFFFFFFF, 0)
     ands = torch.zeros((), dtype=torch.int64, device=dev)
     for j in range(Lr):
-        live = (acc != 0) & (j < n)[:, None, None]
+        live = (acc != 0) & (j < n_v)
         ands += live.sum()
-        pl = planes[:, var[:, j].long().clamp(max=4)]          # [P, Kv, NWp]
-        lo = pl[..., w + (j >> 5)]
-        hi = pl[..., w + (j >> 5) + 1]
-        sh = (((hi << 32) | lo) >> (j & 31)) & 0xFFFFFFFF
-        acc = torch.where(live, acc & sh.permute(1, 0, 2), acc)
-    if W % 32:
-        acc[..., -1] &= (1 << (W % 32)) - 1
+        code = var[vid, j].long()
+        lo = planes[row, code, w + (j >> 5)]
+        hi = planes[row, code, w + (j >> 5) + 1]
+        acc = torch.where(live, acc & ((((hi << 32) | lo) >> (j & 31)) & 0xFFFFFFFF), acc)
+    rem = (W % 32)[seg]
+    last = (w == W32[seg] - 1) & (rem > 0)
+    acc = torch.where(last, acc & ((1 << rem) - 1), acc)
     return acc, int(ands)
 
 
@@ -1280,14 +1356,19 @@ def _all_device_ms(fn, iters: int = 20):
     return us / 1e3 / iters if us else None
 
 
-def match_bits_parity(work: str, fq: str, dev) -> dict:
+def match_bits_parity(work: str, fq: str, dev, base=None) -> dict:
     """The match-bits kernel against its plain version on the card, bit for
-    bit, at every graph the first batch of the reads touches (its reads
-    grouped per graph as the host engine groups them, the inputs as its
-    aligner builds them); at the largest call the kernel, the plain version
-    and cuDNN's conv1d alone on the same one-hots (exact_conv, the library
-    call) are timed, and the kernel's loop is walked in torch for its bits
-    and its ANDs."""
+    bit, on the whole first batch of the reads (grouped per graph as the
+    host engine groups them, the inputs as its aligner builds them): ONE
+    launch for every graph, the plain version a graph at a time, and the
+    kernel's loop walked in torch over the batch for its bits and ANDs;
+    timed: the launch, the plain version, and cuDNN's conv1d on the same
+    one-hots (exact_conv, the library call) summed over the per-graph calls
+    (the largest graph's printed beside it). With `base`, the earlier
+    kernel (one launch a graph, its C signature in `_Baseline._ARGTYPES`)
+    on each graph's inputs, its bits equal and its device time summed over
+    the batch."""
+    from groot_tpu_torch import _build
     from groot_tpu_torch.align import aligner
     from groot_tpu_torch.config import Info
     from groot_tpu_torch.index.lshe import ContainmentIndex
@@ -1302,64 +1383,87 @@ def match_bits_parity(work: str, fq: str, dev) -> dict:
     q64 = sketch_reads_u64(batch.codes, batch.lengths, K, S, dev)
     per_graph = {}
     for i, res in enumerate(info.db.query_batch(q64, kc, 0.99)[: batch.n_valid]):
+        read = batch.read(i)
         for gid in res:
-            per_graph.setdefault(gid, []).append(batch.read(i))
+            per_graph.setdefault(gid, []).append(read)
     ga = aligner.GraphAligner(info.store, device=dev)
-    calls, n_words = [], 0
-    for gid in sorted(per_graph):
-        args = tuple(torch.from_numpy(a).to(dev) for a in
-                     ga.match_inputs(ga.pack(info.store[gid]), per_graph[gid]))
-        got = aligner.match_bits(*args).view(torch.int32)
-        plain = aligner.match_bits_torch(*args).view(torch.int32)
-        _sync(dev)
-        _check(torch.equal(got, plain), f"match_bits graph {gid}: kernel != plain")
-        n_words += got.numel()
-        calls.append((got.numel(), gid, args))
-    _words, gid, args = max(calls, key=lambda c: c[0])
-    path, var, var_len = args
-    walk, ands = _walk_ands(*args)
-    got = aligner.match_bits(*args)
-    _check(torch.equal(got.view(torch.int32).long() & 0xFFFFFFFF, walk),
+    args = ga.match_batch_inputs([(ga.pack(info.store[g]), rs) for g, rs in per_graph.items()])
+    rows, row_off, row_len, codes, lens, pairs, segs = args
+    dev_args = [rows, row_off, row_len,
+                *(torch.from_numpy(a).to(dev) for a in (codes, lens, pairs))]
+    _build.reset_counts()
+    got, off = aligner.match_bits_batch(*args)
+    _sync(dev)
+    _check(aligner.MATCH_BITS.launches == (1 if dev.type == "cuda" else 0),
+           "match_bits: the batch took more than one launch")
+    got = got.view(torch.int32)
+    calls = []
+    for s, seg in enumerate(segs):
+        inputs = aligner.segment_inputs(*dev_args, seg, nvar=6)
+        plain = aligner.match_bits_torch(*inputs).view(torch.int32).reshape(-1)
+        _check(torch.equal(got[off[s]:off[s + 1]], plain),
+               f"match_bits graph {list(per_graph)[s]}: kernel != plain")
+        calls.append(inputs)
+    walk, ands = _walk_ands(*dev_args, segs)
+    _check(torch.equal(got.long() & 0xFFFFFFFF, walk),
            "match_bits: kernel != its loop walked in torch")
-    (P, Lp), (Kv, Lr) = path.shape, var.shape
-    W = Lp - Lr + 1
-    W32 = got.shape[-1]
-    path_oh = aligner.path_onehot(path).permute(0, 2, 1).contiguous()
-    live = torch.arange(Lr, device=dev)[None, :] < var_len[:, None].long()
-    kern = (torch.nn.functional.one_hot(var.long().clamp(max=4), 5).float()
-            * live[..., None]).permute(0, 2, 1).contiguous()
+    one_hots = []
+    for path, var, var_len in calls:
+        live = torch.arange(var.shape[1], device=dev)[None, :] < var_len[:, None].long()
+        kern = torch.nn.functional.one_hot(var.long().clamp(max=4), 5).float() * live[..., None]
+        one_hots.append((aligner.path_onehot(path).permute(0, 2, 1).contiguous(),
+                         kern.permute(0, 2, 1).contiguous()))
+    big = max(range(len(segs)), key=lambda s: off[s + 1] - off[s])
 
-    def conv():
+    def conv_all():
         with aligner.exact_conv():
-            return torch.nn.functional.conv1d(path_oh, kern)
+            return [torch.nn.functional.conv1d(p, k) for p, k in one_hots]
 
-    kfn = lambda: aligner.match_bits(*args)  # noqa: E731
-    pfn = lambda: aligner.match_bits_torch(*args)  # noqa: E731
+    def conv_big():
+        with aligner.exact_conv():
+            return torch.nn.functional.conv1d(*one_hots[big])
+
+    kfn = lambda: aligner.match_bits_batch(*args)  # noqa: E731
+    pfn = lambda: aligner.match_bits_batch_torch(*dev_args, segs)  # noqa: E731
     cuda = dev.type == "cuda"
     m = {"max_abs_err": 0.0, "ms": _time_ms(kfn, dev),
-         "plain_ms": _time_ms(pfn, dev, 5), "library_ms": _time_ms(conv, dev),
+         "plain_ms": _time_ms(pfn, dev, 2), "library_ms": _time_ms(conv_all, dev, 5),
+         "library_largest_ms": _time_ms(conv_big, dev),
          "timed_device_ms": _device_ms(kfn, "match_bits") if cuda else None,
-         "plain_device_ms": _all_device_ms(pfn, 5) if cuda else None,
-         "library_device_ms": _all_device_ms(conv) if cuda else None}
-    # bytes: the rows' real path bases, the variants' real bases and their
-    # lengths in, the bits out; ops: one AND a (variant, row, word, base)
-    # that the early exit leaves (this run's data; the count without the
-    # exit and the conv's multiply-adds are printed beside it)
-    n_path = int(ga.pack(info.store[gid]).lengths.sum())
-    n_var = int(var_len.clamp(min=0, max=Lr).sum())
-    bound = _bound(n_path + n_var + 4 * Kv + 4 * got.numel(), ands)
-    full = _bound(0, n_var * P * W32)
-    conv_b = _bound(0, 2 * 5 * Lr * Kv * P * W)
-    _say(f"match_bits on the first batch: {len(calls)} graphs ({n_words} words), "
-         f"each bit-equal to plain; the largest, graph {gid}: {Kv // 6} reads x 6 "
-         f"variants, {P} rows of Lp {Lp}, Lr {Lr}, W32 {W32}, {ands} ANDs walked "
-         f"(equal to the kernel's bits); kernel {m['ms']:.4f} ms (device "
+         "plain_device_ms": _all_device_ms(pfn, 2) if cuda else None,
+         "library_device_ms": _all_device_ms(conv_all, 5) if cuda else None}
+    if base is not None:
+        m.update(base.match_bits(calls, got, off, dev))
+    # bytes: each touched path row's real bases, each read's real bases,
+    # the pair table and the output words; ops: one AND a (variant, row,
+    # word, base) that the early exit leaves (this run's data; the count
+    # without the exit and the conv's multiply-adds are printed beside it)
+    touched = torch.cat([torch.arange(int(r0), int(r0 + n_r)) for _p, _n, r0, n_r, _w in segs])
+    n_path = int(row_len.cpu()[touched].long().sum())
+    bound = _bound(n_path + int(lens.sum()) + 4 * len(pairs) + 4 * got.numel(), ands)
+    n_var = sum(int(vl.clamp(min=0).sum()) * p.shape[0] * -(-(p.shape[1] - v.shape[1] + 1) // 32)
+                for p, v, vl in calls)
+    full = _bound(0, n_var)
+    conv_b = _bound(0, sum(2 * 5 * v.shape[1] * v.shape[0] * p.shape[0] * (p.shape[1] - v.shape[1] + 1)
+                           for p, v, _vl in calls))
+    bp, bv, _bl = calls[big]
+    _say(f"match_bits on the first batch: {len(segs)} graphs, {len(pairs)} pairs of "
+         f"{len(lens)} reads (Lr {codes.shape[1]}), {len(touched)} path rows, "
+         f"{got.numel()} words in ONE launch, each graph bit-equal to plain and the "
+         f"batch to the kernel's loop walked in torch ({ands} ANDs); the largest "
+         f"graph {list(per_graph)[big]}: {bv.shape[0] // 6} reads x 6 variants, "
+         f"{bp.shape[0]} rows of Lp {bp.shape[1]}; kernel {m['ms']:.4f} ms (device "
          f"{m['timed_device_ms']} ms), plain {m['plain_ms']:.4f} ms (device "
-         f"{m['plain_device_ms']} ms), conv1d {m['library_ms']:.4f} ms (device "
-         f"{m['library_device_ms']} ms); bound {bound['bound_ms']:.6f} ms "
-         f"({bound['bound_by']}: {bound['bytes']} bytes, {ands} ops); without the "
-         f"early exit {full['bound_ms']:.6f} ms ({full['ops']} ANDs); the conv's "
-         f"{conv_b['ops']} flops {conv_b['bound_ms']:.6f} ms")
+         f"{m['plain_device_ms']} ms), conv1d over the {len(segs)} graphs "
+         f"{m['library_ms']:.4f} ms (device {m['library_device_ms']} ms), at the "
+         f"largest graph alone {m['library_largest_ms']:.4f} ms; bound "
+         f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {bound['bytes']} bytes, "
+         f"{ands} ops); without the early exit {full['bound_ms']:.6f} ms "
+         f"({full['ops']} ANDs); the convs' {conv_b['ops']} flops "
+         f"{conv_b['bound_ms']:.6f} ms"
+         + (f"; the earlier kernel, a launch a graph: {m['baseline_ms']:.4f} ms, "
+            f"device {m['baseline_device_ms']} ms summed over the batch, bits equal"
+            if base is not None else ""))
     return {**m, **bound}
 
 
@@ -1646,8 +1750,8 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline-csrc", metavar="DIR",
                     help="an earlier version of groot_tpu_torch/csrc (e.g. from "
                     "git show): its khf_sketch, read_hash, seed_scan, "
-                    "window_sketch, em_batched and lsh_query kernels are timed "
-                    "beside this version's")
+                    "window_sketch, em_batched, lsh_query and match_bits "
+                    "kernels are timed beside this version's")
     args = ap.parse_args(argv)
     smi = preflight()
     dev = torch.device("cuda")
@@ -1665,7 +1769,7 @@ def main(argv=None) -> int:
         launches.update(cascade_phase(work, fq, dev, hash_run))
         kernels["pair_cascade"] = cascade_parity(work, fq, dev)
         launches.update(host_phase(work, fq, dev, hash_run))
-        kernels["match_bits"] = match_bits_parity(work, fq, dev)
+        kernels["match_bits"] = match_bits_parity(work, fq, dev, base)
         em_launches, kernels["em_batched"] = haplotype_phase(work, dev, base)
         launches.update(em_launches)
         accuracy_phase(work)
@@ -1697,7 +1801,8 @@ def main(argv=None) -> int:
             **{k: m[k] for k in ("baseline_ms", "baseline_device_ms",
                                  "banded_timed_device_ms",
                                  "banded_baseline_device_ms",
-                                 "plain_device_ms", "library_device_ms")
+                                 "plain_device_ms", "library_device_ms",
+                                 "library_largest_ms")
                if k in m},
         })
     _say(smi)

@@ -17,13 +17,22 @@ cascade becomes lookups into a boolean match volume
 
     M[r, p, o] = read r matches path p starting at offset o
 
-computed for a read batch by `match_bits` from u8 codes: on a card the
-match-bits kernel (csrc/match_bits.cu: bit planes of each path row, ANDed
-along each read variant), on the CPU its plain version `match_bits_torch`,
-the reference's one-hot cross-correlation (`_match_bits`):
+computed for a whole read batch, every graph it touches, by ONE call of
+`match_bits_batch` from u8 codes: the store's path rows stay on the
+aligner's device from first use, each batch sends its reads' forward codes
+and a pair table (graph, read) once, and the six variants of a pair (fwd |
+rc) x (full | clip-start | clip-end) are derived where the bits are made.
+On a card that is one launch of the match-bits kernel (csrc/match_bits.cu:
+bit planes of each path row, ANDed along each read variant) and one copy
+of the bits back into a pinned buffer; on the CPU its plain version
+`match_bits_batch_torch`, which runs `match_bits_torch`, the reference's
+one-hot cross-correlation (`_match_bits`), a graph at a time:
 
     count[r, p, o] = sum_j onehot5(read)[r, j, :] . onehot5(path)[p, o+j, :]
     M = (count == effective_read_len)
+
+`match_bits` is the one-graph form with explicit variant rows, through the
+same kernel.
 
 Path 'N' and padding are wildcard rows (all ones), so graph Ns match
 anything and matches may run past a path's end; those are kept only when the
@@ -50,10 +59,17 @@ MAX_CLIP = 1  # alignment.go:16
 NODE_SHUFFLES = 10  # alignment.go:52
 
 MATCH_BITS = Kernel(
-    "match_bits", "groot_match_bits", (P, P, P, I, I, I, I, P),
+    "match_bits", "groot_match_bits", (P, P, P, P, P, I, P, P, P, P, I, I, I, I, P),
     source="groot_tpu_torch/csrc/match_bits.cu",
     replaces="groot_tpu/align/aligner.py:121",
 )
+# a kernel block's share of a launch: (variant, word) items it aims at (the
+# fastest of 128-2,048 at the host engine's batches, match_bits_timing.py),
+# the most output words of one path row it covers (longer rows split) and
+# the most bytes of reads it stages in shared memory
+ITEMS_PER_BLOCK = 1024
+MAX_BLOCK_WORDS = 1024
+MAX_STAGED_BYTES = 32 * 1024
 
 
 @dataclass
@@ -92,22 +108,6 @@ class _GraphPack:
         for pid in self.path_ids:
             nodes = graph.path_nodes(pid)
             self.terminal_free[pid] = len(nodes[-1].out_edges) == 0 if nodes else False
-        self._codes_cache: Dict[int, np.ndarray] = {}
-
-    def path_codes(self, extra_pad: int) -> np.ndarray:
-        """u8 [P, L+extra_pad]: the path rows' codes, padded with N (4)."""
-        padded = self._codes_cache.get(extra_pad)
-        if padded is None:
-            codes = self.packed.codes
-            P, L = codes.shape
-            padded = np.full((P, L + extra_pad), 4, dtype=np.uint8)
-            padded[:, :L] = codes
-            self._codes_cache[extra_pad] = padded
-        return padded
-
-    def onehot(self, extra_pad: int) -> np.ndarray:
-        """[P, L+extra_pad, 5] float32 one-hot with wildcard N/pad rows."""
-        return path_onehot(torch.from_numpy(self.path_codes(extra_pad))).numpy()
 
 
 def path_onehot(codes: torch.Tensor) -> torch.Tensor:
@@ -190,19 +190,176 @@ def match_bits(path_codes: torch.Tensor, var_codes: torch.Tensor,
         raise ValueError("path_codes, var_codes and var_len must be on one device")
     if not 1 <= Lr <= Lp:
         raise ValueError(f"variant width {Lr}: want 1 .. the path width {Lp}")
-    if dev.type == "cpu":
-        return match_bits_torch(path_codes, var_codes, var_len)
+    # one segment: the rows as they are, each variant its own "read"
+    bits, _off = match_bits_batch(
+        path_codes.contiguous().view(-1), np.arange(P, dtype=np.int64) * Lp,
+        np.full(P, Lp, np.int32), var_codes.contiguous(), var_len.contiguous(),
+        np.arange(K, dtype=np.int32), [(0, K, 0, P, Lp - Lr + 1)], nvar=1)
+    return bits.view(K, P, -(-(Lp - Lr + 1) // 32))
+
+
+def variant_rows(reads: torch.Tensor, read_len: torch.Tensor):
+    """The six variants of each read as the kernel derives them: u8 reads
+    [R, Lr] (N = 4, the columns at and past read_len 4) and int32 read_len
+    [R] (<= Lr) -> u8 variant codes [6R, Lr] and int32 var_len [6R], read r's
+    variants at rows 6r .. 6r + 5: (fwd | rc) x (full | clip-start: read[1:]
+    | clip-end: read[:len-1]), rc[j] = comp(read[len-1-j]) with N staying
+    N; lengths len, len - 1, len - 1."""
+    R, Lr = reads.shape
+    dev = reads.device
+    fwd = reads.long().clamp(max=4)
+    n = read_len.long()[:, None]
+    src = n - 1 - torch.arange(Lr, device=dev)[None, :]
+    comp = torch.tensor([3, 2, 1, 0, 4], device=dev)
+    rc = torch.where((src >= 0) & (src < Lr),
+                     comp[fwd.gather(1, src.clamp(0, Lr - 1))], 4)
+    var = torch.full((R, 2, 3, Lr), 4, dtype=torch.uint8, device=dev)
+    for o, cs in enumerate((fwd, rc)):
+        var[:, o, 0] = cs
+        var[:, o, 1, :-1] = cs[:, 1:]
+        var[:, o, 2] = cs  # its last real base lies past var_len
+    var_len = torch.cat([n, n - 1, n - 1] * 2, 1)
+    return var.reshape(R * 6, Lr), var_len.reshape(R * 6).int()
+
+
+def segment_inputs(rows, row_off, row_len, reads, read_len, pairs, seg, nvar: int):
+    """The one-graph `match_bits` inputs of segment `seg` = (first pair,
+    pairs, first row, rows, W) of a `match_bits_batch` call (tensors on
+    one device): path codes u8 [P, W - 1 + Lr] (a row's codes, N past its
+    end), variant codes u8 [nvar * pairs, Lr] and var_len int32."""
+    pair0, n, row0, n_rows, W = (int(v) for v in seg)
+    dev = rows.device
+    Lp = W - 1 + reads.shape[1]
+    col = torch.arange(Lp, device=dev)[None, :]
+    off = row_off[row0:row0 + n_rows].long()[:, None]
+    live = col < row_len[row0:row0 + n_rows].long()[:, None]
+    path = torch.full((n_rows, Lp), 4, dtype=torch.uint8, device=dev)
+    path[live] = rows[(off + col)[live]]
+    pr = pairs[pair0:pair0 + n].long()
+    if nvar == 6:
+        return (path, *variant_rows(reads[pr], read_len[pr]))
+    return path, reads[pr], read_len[pr]
+
+
+def match_bits_batch_torch(rows, row_off, row_len, reads, read_len, pairs,
+                           segs, nvar: int = 6) -> torch.Tensor:
+    """The plain version of `match_bits_batch` (its arguments as tensors on
+    one device): `match_bits_torch` on each segment's `segment_inputs`,
+    the bits of the segments one after another, u32."""
+    out = [match_bits_torch(*segment_inputs(rows, row_off, row_len, reads,
+                                            read_len, pairs, seg, nvar))
+           .view(torch.int32).reshape(-1)
+           for seg in np.asarray(segs, np.int64).reshape(-1, 5)]
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=rows.device).view(torch.uint32)
+    return torch.cat(out).view(torch.uint32)
+
+
+def work_table(segs: np.ndarray, nvar: int, Lr: int, items: int, max_words: int):
+    """The kernel's launch layout for segments `segs` (int64 [S, 5]: first
+    pair, pairs, first row, rows, W): one block a (segment, path row, group
+    of pairs, chunk of at most `max_words` output words), groups and chunks
+    balanced and sized to about `items` (variant, word) items a block and
+    at most MAX_STAGED_BYTES of staged reads (or one pair).
+    Returns the segment table int32 [S, 8] (first pair, pairs, first row,
+    rows, W, W32, pairs a block, words a block), the work table int32
+    [blocks, 4] (segment, row within it, first pair, first word), the most
+    plane words a block reads (its words + ceil(Lr/32)) and the most pairs
+    a block stages."""
+    pair0, n, row0, n_rows, W = segs.T
+    W32 = -(-W // 32)
+    n_chunks = -(-W32 // max_words)
+    WC = -(-W32 // np.maximum(n_chunks, 1))
+    PG = np.maximum(np.minimum(items // (nvar * np.maximum(WC, 1)),
+                               MAX_STAGED_BYTES // ((2 if nvar == 6 else 1) * Lr)), 1)
+    n_groups = -(-n // PG)
+    PG = -(-n // np.maximum(n_groups, 1))
+    per = n_rows * n_groups * n_chunks
+    seg = np.repeat(np.arange(len(segs)), per)
+    local = np.arange(len(seg)) - np.repeat(np.cumsum(per) - per, per)
+    chunk = local % n_chunks[seg]
+    t = local // n_chunks[seg]
+    work = np.stack([seg, t // n_groups[seg], t % n_groups[seg] * PG[seg],
+                     chunk * WC[seg]], 1).astype(np.int32)
+    seg_tab = np.stack([pair0, n, row0, n_rows, W, W32, PG, WC], 1).astype(np.int32)
+    live = per > 0
+    nws = int(WC[live].max()) + -(-Lr // 32) if live.any() else 1
+    return seg_tab, work, nws, int(PG[live].max()) if live.any() else 1
+
+
+def _on_device(dev: torch.device, arrays):
+    """numpy arrays -> tensors on `dev` (tensors pass through): on a card
+    ONE pinned staging buffer and ONE host-to-device copy, each array a
+    view at a 16-byte aligned offset of it."""
     if dev.type != "cuda":
+        return [torch.as_tensor(a) for a in arrays]
+    host = [a for a in arrays if isinstance(a, np.ndarray)]
+    offs, n = [], 0
+    for a in host:
+        offs.append(n)
+        n += -(-a.nbytes // 16) * 16
+    stage = torch.empty(max(n, 16), dtype=torch.uint8, pin_memory=True)
+    buf = stage.numpy()
+    for a, o in zip(host, offs):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    moved = stage.to(dev, non_blocking=True)
+    views = iter(moved[o:o + a.nbytes].view(torch.from_numpy(a[:0].copy()).dtype)
+                 .view(a.shape) for a, o in zip(host, offs))
+    return [next(views) if isinstance(a, np.ndarray) else a for a in arrays]
+
+
+def match_bits_batch(rows, row_off, row_len, reads, read_len, pairs, segs,
+                     nvar: int = 6):
+    """Packed match volumes of many graphs at once. The path rows: u8 codes
+    `rows` (flat; its device is the call's), row r at row_off[r] (int64)
+    with row_len[r] bases (int32), a position at or past its end a
+    wildcard. The reads: u8 [R, Lr] (N = 4) and int32 read_len [R]; pairs:
+    int32 read rows; segs: one (first pair, pairs, first row, rows, W) a
+    graph. nvar 6 derives each pair's six variants (`variant_rows`; needs
+    read_len <= Lr), nvar 1 takes the read itself with var_len = read_len
+    (0 matches everywhere, below 0 or above Lr nowhere). Every argument but
+    `rows` and `segs` may be a numpy array (copied to the device with the
+    launch layout in one copy) or a tensor on rows' device. Returns u32
+    bits (segment s: [pairs, nvar, rows, ceil(W/32)] at words out_off[s],
+    bit b of word w the match at offset 32w + b, none at offsets >= W) on
+    the device and out_off int64 [S + 1] on the host. A CPU `rows` takes
+    the plain version; a CUDA one launches the match-bits kernel once, or
+    raises."""
+    dev = rows.device
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
-    if P > 65535:
-        raise ValueError(f"match_bits kernel: {P} path rows, at most 65,535")
-    path_codes, var_codes, var_len = (
-        t.contiguous() for t in (path_codes, var_codes, var_len))
-    out = torch.empty((K, P, -(-(Lp - Lr + 1) // 32)), dtype=torch.int32, device=dev)
-    if P and K:
-        MATCH_BITS.launch(dev, ptr(path_codes), ptr(var_codes), ptr(var_len),
-                          P, Lp, K, Lr, ptr(out))
-    return out.view(torch.uint32)
+    if rows.dtype != torch.uint8 or rows.dim() != 1:
+        raise TypeError(f"rows must be flat uint8, got {rows.dtype} {tuple(rows.shape)}")
+    if str(reads.dtype) not in ("uint8", "torch.uint8") or reads.ndim != 2:
+        raise TypeError(f"reads must be uint8 [R, Lr], got {reads.dtype}")
+    if nvar not in (1, 6):
+        raise ValueError(f"nvar {nvar}: want 1 or 6")
+    Lr = int(reads.shape[1])
+    segs = np.asarray(segs, np.int64).reshape(-1, 5)
+    if Lr < 1 or (segs[:, 4] < 1).any():
+        raise ValueError("want reads of width >= 1 and every W >= 1")
+    if nvar == 6 and isinstance(read_len, np.ndarray) and (read_len > Lr).any():
+        raise ValueError(f"a read longer than the read width {Lr}")
+    sizes = segs[:, 1] * nvar * segs[:, 3] * -(-segs[:, 4] // 32)
+    out_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    if dev.type == "cpu":
+        return match_bits_batch_torch(
+            rows, *_on_device(dev, [row_off, row_len, reads, read_len, pairs]),
+            segs, nvar), out_off
+    seg_tab, work, nws, pg_max = work_table(segs, nvar, Lr, ITEMS_PER_BLOCK,
+                                            MAX_BLOCK_WORDS)
+    args = _on_device(dev, [row_off, row_len, reads, read_len, pairs, seg_tab,
+                            out_off[:-1], work])
+    for a, dt in zip(args, (torch.int64, torch.int32, torch.uint8, torch.int32,
+                            torch.int32)):
+        if a.device != dev or a.dtype != dt or not a.is_contiguous():
+            raise TypeError(f"want a contiguous {dt} on {dev}, got {a.dtype} on {a.device}")
+    out = torch.empty(int(out_off[-1]), dtype=torch.int32, device=dev)
+    if len(work):
+        MATCH_BITS.launch(dev, ptr(rows), *(ptr(a) for a in args[:4]), Lr,
+                          *(ptr(a) for a in args[4:]), len(work), nvar, nws,
+                          pg_max, ptr(out))
+    return out.view(torch.uint32), out_off
 
 
 class GraphAligner:
@@ -215,6 +372,9 @@ class GraphAligner:
         self.store = store
         self.device = resolve_device(device)
         self._packs: Dict[int, _GraphPack] = {}
+        self._rows = None  # the store's path rows on the device (first use)
+        self._row_index: Dict[int, Tuple[int, int, int]] = {}
+        self._pinned: Optional[torch.Tensor] = None  # bits back from a card
 
     def pack(self, graph: GrootGraph) -> _GraphPack:
         gp = self._packs.get(graph.graph_id)
@@ -222,6 +382,26 @@ class GraphAligner:
             gp = _GraphPack(graph)
             self._packs[graph.graph_id] = gp
         return gp
+
+    def path_rows(self):
+        """(rows, row_off, row_len) of every graph of the store on the
+        aligner's device, made and copied once, on first use: each path
+        row's real bases, one after another (`match_bits_batch`'s path
+        rows); `_row_index[graph_id]` = (first row, rows, width L)."""
+        if self._rows is None:
+            codes, lens = [], []
+            for gid in sorted(self.store):
+                packed = self.pack(self.store[gid]).packed
+                P, L = packed.codes.shape
+                self._row_index[gid] = (sum(len(n) for n in lens), P, L)
+                live = np.arange(L)[None, :] < packed.lengths[:, None]
+                codes.append(packed.codes[live])
+                lens.append(packed.lengths)
+            lens = np.concatenate(lens or [np.zeros(0, np.int32)]).astype(np.int32)
+            row_off = (np.cumsum(lens) - lens).astype(np.int64)
+            flat = np.concatenate(codes or [np.zeros(0, np.uint8)])
+            self._rows = _on_device(self.device, [flat, row_off, lens])
+        return self._rows
 
     # ------------------------------------------------------------------
     def align_read(
@@ -238,13 +418,31 @@ class GraphAligner:
     def align_read_batch(
         self, graph: GrootGraph, items: List[Tuple[FastqRead, List, float]]
     ) -> List[Tuple[List[AlignmentRecord], int]]:
-        """graphMinion semantics (graphminion.go:46-102) for a batch of reads
-        seeded to one graph: weight then try to align each mapping (fwd then
-        RC); the first successful mapping wins and later mappings are neither
-        weighted nor aligned. One correlation covers every read x
-        orientation x clip-variant; the cascade itself is host bit tests."""
+        """`align_graph_batches` for the reads seeded to one graph."""
+        return self._align_graphs([(graph, items)])[0]
+
+    def align_graph_batches(
+        self, per_graph: Dict[int, List[Tuple[FastqRead, List, float]]]
+    ) -> Dict[int, List[Tuple[List[AlignmentRecord], int]]]:
+        """graphMinion semantics (graphminion.go:46-102) for a read batch,
+        {graph_id: [(read, mappings, kmer count)]}: per graph, in the dict's
+        order, and per read, in item order, weight then try to align each
+        mapping (fwd then RC); the first successful mapping wins and later
+        mappings are neither weighted nor aligned. One `match_bits_batch`
+        call covers every graph x read x orientation x clip-variant; the
+        cascade itself is host bit tests. Returns {graph_id: [(records,
+        mappings weighted)]} in the same order."""
+        groups = [(self.store[gid], items) for gid, items in per_graph.items()]
+        return dict(zip(per_graph, self._align_graphs(groups)))
+
+    def _align_graphs(self, groups):
+        vols = self._match_volumes(
+            [(self.pack(graph), [it[0] for it in items]) for graph, items in groups])
+        return [self._align_items(graph, items, bits)
+                for (graph, items), bits in zip(groups, vols)]
+
+    def _align_items(self, graph, items, bits):
         gp = self.pack(graph)
-        bits = self._batch_match_bits(gp, [it[0] for it in items])
         out: List[Tuple[List[AlignmentRecord], int]] = []
         for r, (read, mappings, kmer_count) in enumerate(items):
             Lr = len(read.seq)
@@ -265,44 +463,62 @@ class GraphAligner:
         return out
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def match_inputs(gp: _GraphPack, reads: List[FastqRead]):
-        """The match-bits inputs of a read batch: path codes u8 [P, L + Lr_b]
-        (the rows padded with Lr_b columns of N, Lr_b the longest read
-        rounded up to a multiple of 32, at least 32), variant codes u8
-        [6R, Lr_b] and var_len int32 [6R]. A read's six variants are (fwd|rc)
-        x (full | clip-start: read[1:] | clip-end: read[:Lr-1])."""
-        R = len(reads)
-        lens = np.fromiter((len(r.seq) for r in reads), np.int64, R)
-        Lr_b = -(-max(int(lens.max()), 32) // 32) * 32
-        col = np.arange(Lr_b)
-        fwd = np.full((R, Lr_b), 4, dtype=np.uint8)
-        fwd[col[None, :] < lens[:, None]] = ASCII_TO_CODE[
+    def match_batch_inputs(self, groups: List[Tuple[_GraphPack, List[FastqRead]]]):
+        """The `match_bits_batch` arguments of a read batch, [(graph pack,
+        reads)]: the store's path rows on the aligner's device
+        (`path_rows`), each distinct read's forward codes once (u8 [R, Lr_b],
+        Lr_b the longest read rounded up to a multiple of 32, at least 32)
+        and lengths, the pair table (a read row a (group, read)) and a
+        segment (first pair, pairs, first row, rows, W = L + 1) a group."""
+        reads: List[FastqRead] = []
+        at: Dict[int, int] = {}
+        pairs: List[int] = []
+        segs = []
+        rows = self.path_rows()
+        for gp, rs in groups:
+            row0, n_rows, L = self._row_index[gp.packed.graph_id]
+            segs.append((len(pairs), len(rs), row0, n_rows, L + 1))
+            for r in rs:
+                i = at.setdefault(id(r), len(reads))
+                if i == len(reads):
+                    reads.append(r)
+                pairs.append(i)
+        lens = np.fromiter((len(r.seq) for r in reads), np.int32, len(reads))
+        Lr_b = -(-max(int(lens.max(initial=0)), 32) // 32) * 32
+        codes = np.full((len(reads), Lr_b), 4, dtype=np.uint8)
+        codes[np.arange(Lr_b)[None, :] < lens[:, None]] = ASCII_TO_CODE[
             np.frombuffer(b"".join(r.seq for r in reads), dtype=np.uint8)]
-        src = lens[:, None] - 1 - col[None, :]  # rc[j] = comp(read[Lr-1-j])
-        rc = np.where(src >= 0,
-                      RC_CODE_NP[np.take_along_axis(fwd, src.clip(0), axis=1)], 4)
-        var = np.full((R, 2, 3, Lr_b), 4, dtype=np.uint8)
-        var_len = np.empty((R, 2, 3), dtype=np.int32)
-        for o, cs in enumerate((fwd, rc)):
-            var[:, o, 0] = cs
-            var[:, o, 1, :-1] = cs[:, 1:]
-            var[:, o, 2] = cs  # its last real base lies past var_len
-            var_len[:, o, 0] = lens
-            var_len[:, o, 1:] = (lens - 1)[:, None]
-        return (gp.path_codes(Lr_b), var.reshape(R * 6, Lr_b),
-                var_len.reshape(R * 6))
+        return (*rows, codes, lens, np.asarray(pairs, np.int32),
+                np.asarray(segs, np.int64).reshape(-1, 5))
 
-    def _batch_match_bits(self, gp: _GraphPack, reads: List[FastqRead]):
-        """Match volumes for a read batch: bits u32 [R, 6, P, W32], from
-        `match_bits` on the aligner's device."""
-        path, var, var_len = self.match_inputs(gp, reads)
-        dev = self.device
-        bits = match_bits(torch.from_numpy(path).to(dev),
-                          torch.from_numpy(var).to(dev),
-                          torch.from_numpy(var_len).to(dev))
-        bits = bits.view(torch.int32).cpu().numpy().view(np.uint32)
-        return bits.reshape(len(reads), 6, path.shape[0], bits.shape[-1])
+    def _match_volumes(self, groups: List[Tuple[_GraphPack, List[FastqRead]]]):
+        """Match volumes of a read batch, [(graph pack, reads)] -> per group
+        bits u32 [R, 6, P, W32], from ONE `match_bits_batch` call on the
+        aligner's device. On a card the bits come back by one copy into a
+        pinned buffer the aligner keeps (grown as needed): the arrays
+        returned are views of it, valid until the next call."""
+        if not groups:
+            return []
+        args = self.match_batch_inputs(groups)
+        segs = args[-1]
+        bits, off = match_bits_batch(*args, nvar=6)
+        words = self._to_host(bits.view(torch.int32))
+        return [words[off[s]:off[s + 1]].reshape(int(n), 6, int(n_rows), -(-int(W) // 32))
+                for s, (_p0, n, _r0, n_rows, W) in enumerate(segs)]
+
+    def _to_host(self, bits: torch.Tensor) -> np.ndarray:
+        """int32 bits -> a u32 numpy view: on a card one copy into the
+        pinned buffer and a wait for it."""
+        if bits.device.type != "cuda":
+            return bits.numpy().view(np.uint32)
+        n = bits.numel()
+        if self._pinned is None or self._pinned.numel() < n:
+            size = max(n, 2 * (0 if self._pinned is None else self._pinned.numel()))
+            self._pinned = torch.empty(size, dtype=torch.int32, pin_memory=True)
+        host = self._pinned[:n]
+        host.copy_(bits, non_blocking=True)
+        torch.cuda.current_stream(bits.device).synchronize()
+        return host.numpy().view(np.uint32)
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -83,6 +83,9 @@ class NumpyGraphAligner(GraphAligner):
     (the fallback set is tiny, so numpy is instant and no tensor crosses
     to a device)."""
 
+    def _match_volumes(self, groups):
+        return [self._batch_match_bits(gp, reads) for gp, reads in groups]
+
     def _batch_match_bits(self, gp: _GraphPack, reads):
         R = len(reads)
         Lr_b = -(-max(max(len(r.seq) for r in reads), 32) // 32) * 32

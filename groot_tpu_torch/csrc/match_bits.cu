@@ -1,38 +1,55 @@
-// Match volumes of the `host` engine: for every read variant k, path row p
-// and offset o < W = Lp - Lr + 1, do the first var_len[k] bases of the
-// variant all match the path at o? A path N or pad (code >= 4) matches any
-// base; a read N (code 4) matches only a path N or pad. A var_len of 0
-// matches at every offset; one below 0 or above Lr never matches. Output:
-// u32 [K, P, ceil(W/32)], bit b of word w the match at offset 32w + b, the
-// bits at offsets >= W zero.
+// Match volumes of the `host` engine, for every graph a read batch touches
+// in one launch. A segment is one graph: path rows (u8 codes in a flat
+// buffer, row r at byte row_off[r], row_len[r] bases; every position at or
+// past a row's end is a wildcard) and a run of pairs in `pairs` (each the
+// row of a read in `reads`, u8 [R, Lr], with read_len[R]). A pair has nvar
+// variants: nvar == 1 takes the read row itself with var_len = read_len;
+// nvar == 6 derives (fwd | rc) x (full | clip-start: read[1:], length
+// Lr-1 | clip-end: length Lr-1), rc[j] = comp(read[len-1-j]), N staying N.
+// For variant k, path row p and offset o < W (the segment's width), the
+// output bit says whether the first var_len bases all match the row at o:
+// a path N (code >= 4) matches any base, a read N only a path N. var_len 0
+// matches everywhere, below 0 or above Lr nowhere. Segment s writes u32
+// [R_s, nvar, P_s, ceil(W/32)] at word seg_out[s], bit b of word w the
+// match at offset 32w + b, the bits at offsets >= W zero.
 //
 // Replaces groot_tpu/align/aligner.py::_match_bits (an XLA program: one
 // bf16 convolution of [P, Lp, 5] path one-hots with [K, Lr, 5] variant
-// one-hots, a count compared with var_len, packed 32 offsets a word). That
-// count is exact only while every partial sum is an integer that the
-// accumulator holds; this kernel never counts: it ANDs bits, exact by
+// one-hots a graph, a count compared with var_len, packed 32 offsets a
+// word). That count is exact only while every partial sum is an integer
+// the accumulator holds; this kernel never counts: it ANDs bits, exact by
 // construction, with no float and no one-hot.
 //
-// Design: a block takes one path row p and a group of KG variants.
-// - Bit planes: over positions 0 .. NWp*32 - 1 of the row, five u32 planes
-//   in shared memory, built by ballots (a warp a word, a lane a position,
-//   one coalesced byte load a lane): plane c < 4 holds "the base is c or
-//   a wildcard", plane 4 "the base is a wildcard". Positions past Lp are
-//   0 in every plane. NWp = W32 + ceil(Lr / 32) words: one word wider than
-//   the last offset word's reach, so the funnel shift below never reads
-//   past the planes.
-// - The group's variant codes are staged in shared memory.
-// - A thread a (variant, word w): acc starts all ones, and for each base j
-//   < var_len it ANDs the plane of that base shifted to offset 32w + j
-//   (__funnelshift_r of two neighbouring words), stopping once acc is 0,
-//   as most words are after a few bases. The last word is masked to W.
+// Design: a block takes one work item, (segment, path row, group of pairs,
+// chunk of output words), from a table the host builds, so one launch
+// covers a whole batch of graphs and long rows split into chunks.
+// - Bit planes: over the chunk's words and ceil(Lr/32) more, five u32
+//   planes in shared memory, built by ballots (a warp a word, a lane a
+//   position, one coalesced byte load a lane, the loads of four words
+//   issued before their ballots): plane c < 4 holds "the base is c or a
+//   wildcard", plane 4 "the base is a wildcard". The funnel shift below
+//   reads at most the chunk's last word + ceil(Lr/32).
+// - The group's reads are staged in shared memory, and for nvar == 6 their
+//   reverse complements beside them; a variant is then a pointer (+1 for
+//   clip-start) and a length.
+// - An item is a (variant, word w): acc starts all ones, and each base j
+//   < var_len ANDs in the plane of that base shifted to offset 32w + j
+//   (__funnelshift_r of two neighbouring words). The last word is masked
+//   to W. In rounds of a thread an item, a thread first walks its word's
+//   first kSerial bases alone, stopping once acc is 0, as most words are
+//   by then; a word still live with bases left is queued, and a warp then
+//   takes each queued word, a lane every 32nd remaining base, the lanes'
+//   words ANDed by __reduce_and_sync. So a word that holds a true match
+//   costs kSerial dependent steps and ceil((len - kSerial) / 32)
+//   independent ones, where one thread walking it alone took len
+//   dependent steps while its warp's other lanes idled.
 //
-// What bounds it: the output words (4 bytes a (variant, row, word)) and
-// one AND a (variant, row, word, base) that the early exit leaves; both
-// are small, so at the host engine's per-graph calls (tens to thousands of
-// variants, a few rows of ~1.5 kb) a launch is set by its latency: the
-// plane build (one ballot round a word), one barrier, then the longest
-// walk of a block, the word that holds a true match (var_len steps).
+// What bounds it: the output words (4 bytes a (variant, row, word)), the
+// rows' and reads' bases read once, and one AND a (variant, row, word,
+// base) that the early exit leaves; at a read batch of the host engine
+// (~500 graphs of a few rows of ~1.5 kb, ~4 reads each) all are small, so
+// the launch is set by latency: the plane build, the barriers, and the
+// longest walk of a block, over the waves of blocks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,97 +57,196 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPlanes = 5;
+constexpr int kUnroll = 4;
+constexpr int kSerial = 8;  // bases a thread walks alone before its word queues
 constexpr unsigned kFull = 0xffffffffu;
 
+// columns of the segment table (int32 [S, kSegCols])
+enum {
+  kSegPairOff, kSegPairs, kSegRow0, kSegRows, kSegW, kSegW32, kSegPG, kSegWC,
+  kSegCols
+};
+
+__device__ __forceinline__ int clamp_code(int c) { return c < 4 ? c : 4; }
+__device__ __forceinline__ int comp_code(int c) { return c < 4 ? 3 - c : 4; }
+
+// Item `it` of a block: its variant's staged codes (+1 for clip-start),
+// its length, and its pair, variant and word within the block.
+struct Item {
+  const uint8_t* codes;
+  int len, pl, v, wl;
+};
+
+__device__ __forceinline__ Item block_item(int it, const uint8_t* codes,
+                                           const int32_t* pair_rd,
+                                           const int32_t* read_len, int Lr,
+                                           int nvar, int nw) {
+  Item r;
+  const int per_pair = nvar * nw;
+  r.pl = it / per_pair;
+  const int rem = it - r.pl * per_pair;
+  r.v = rem / nw;
+  r.wl = rem - r.v * nw;
+  r.codes = codes + static_cast<size_t>(r.pl) * (nvar == 6 ? 2 : 1) * Lr;
+  r.len = read_len[pair_rd[r.pl]];
+  if (nvar == 6) {
+    const int strand = r.v >= 3;
+    const int kind = r.v - 3 * strand;  // 0 full, 1 clip-start, 2 clip-end
+    r.codes += strand * Lr + (kind == 1);
+    r.len -= kind > 0;
+  }
+  return r;
+}
+
 __global__ void __launch_bounds__(kThreads) match_bits_kernel(
-    const uint8_t* __restrict__ path, const uint8_t* __restrict__ var,
-    const int32_t* __restrict__ var_len, int P, int Lp, int K, int Lr, int W,
-    int W32, int NWp, int KG, uint32_t* __restrict__ out) {
+    const uint8_t* __restrict__ rows, const int64_t* __restrict__ row_off,
+    const int32_t* __restrict__ row_len, const uint8_t* __restrict__ reads,
+    const int32_t* __restrict__ read_len, int Lr,
+    const int32_t* __restrict__ pairs, const int32_t* __restrict__ segs,
+    const int64_t* __restrict__ seg_out, const int4* __restrict__ work,
+    int nvar, int NWs, uint32_t* __restrict__ out) {
   extern __shared__ uint32_t smem[];
-  uint32_t* plane = smem;  // [kPlanes][NWp]
-  uint8_t* codes = reinterpret_cast<uint8_t*>(smem + kPlanes * NWp);  // [KG][Lr]
-  const int p = blockIdx.y;
-  const int k0 = blockIdx.x * KG;
-  const int nk = min(KG, K - k0);
+  const int4 item = work[blockIdx.x];  // segment, row, first pair, first word
+  const int32_t* seg = segs + item.x * kSegCols;
+  const int n_pairs = min(seg[kSegPG], seg[kSegPairs] - item.z);
+  const int nw = min(seg[kSegWC], seg[kSegW32] - item.w);
+  const int P = seg[kSegRows], W = seg[kSegW], W32 = seg[kSegW32];
+  const int word0 = item.w;
+  const int nws = nw + (Lr + 31) / 32;  // plane words this block reads
+  const int ncodes = nvar == 6 ? 2 : 1;
+  uint32_t* plane = smem;  // [kPlanes][NWs]
+  uint8_t* codes = reinterpret_cast<uint8_t*>(smem + kPlanes * NWs);  // [pairs][ncodes][Lr]
+  const int32_t* pair_rd = pairs + seg[kSegPairOff] + item.z;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
 
-  const uint8_t* row = path + static_cast<size_t>(p) * Lp;
-  for (int wi = warp; wi < NWp; wi += n_warps) {  // warp-uniform
-    const int x = wi * 32 + lane;
-    const bool in = x < Lp;
-    const int c = in ? row[x] : 0;
-    const uint32_t wild = __ballot_sync(kFull, in && c >= 4);
-    const uint32_t b0 = __ballot_sync(kFull, in && c == 0) | wild;
-    const uint32_t b1 = __ballot_sync(kFull, in && c == 1) | wild;
-    const uint32_t b2 = __ballot_sync(kFull, in && c == 2) | wild;
-    const uint32_t b3 = __ballot_sync(kFull, in && c == 3) | wild;
-    if (lane < kPlanes)
-      plane[lane * NWp + wi] =
-          lane == 0 ? b0 : lane == 1 ? b1 : lane == 2 ? b2 : lane == 3 ? b3 : wild;
+  const int row = seg[kSegRow0] + item.y;
+  const uint8_t* rp = rows + row_off[row];
+  const int rlen = row_len[row];
+  for (int wb = warp; wb < nws; wb += kUnroll * n_warps) {  // warp-uniform
+    int c[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int wi = wb + u * n_warps;
+      const int x = (word0 + wi) * 32 + lane;
+      c[u] = (wi < nws && x < rlen) ? rp[x] : 4;  // past the row: wildcard
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int wi = wb + u * n_warps;
+      if (wi >= nws) break;
+      const uint32_t wild = __ballot_sync(kFull, c[u] >= 4);
+      const uint32_t b0 = __ballot_sync(kFull, c[u] == 0) | wild;
+      const uint32_t b1 = __ballot_sync(kFull, c[u] == 1) | wild;
+      const uint32_t b2 = __ballot_sync(kFull, c[u] == 2) | wild;
+      const uint32_t b3 = __ballot_sync(kFull, c[u] == 3) | wild;
+      if (lane < kPlanes)
+        plane[lane * NWs + wi] =
+            lane == 0 ? b0 : lane == 1 ? b1 : lane == 2 ? b2 : lane == 3 ? b3 : wild;
+    }
   }
-  const uint8_t* vsrc = var + static_cast<size_t>(k0) * Lr;
-  for (int i = threadIdx.x; i < nk * Lr; i += blockDim.x) {
-    const int c = vsrc[i];
-    codes[i] = static_cast<uint8_t>(c < 4 ? c : 4);
+  for (int i = threadIdx.x; i < n_pairs * Lr; i += blockDim.x) {
+    const int pl = i / Lr;
+    const int j = i - pl * Lr;
+    const int r = pair_rd[pl];
+    const uint8_t* rd = reads + static_cast<size_t>(r) * Lr;
+    uint8_t* dst = codes + static_cast<size_t>(pl) * ncodes * Lr;
+    dst[j] = static_cast<uint8_t>(clamp_code(rd[j]));
+    if (ncodes == 2) {
+      const int src = read_len[r] - 1 - j;
+      dst[Lr + j] = static_cast<uint8_t>(
+          src >= 0 && src < Lr ? comp_code(clamp_code(rd[src])) : 4);
+    }
   }
   __syncthreads();
 
+  __shared__ int queue_item[kThreads];
+  __shared__ uint32_t queue_acc[kThreads];
+  __shared__ int queue_n;
   const uint32_t last_mask = (W & 31) ? (1u << (W & 31)) - 1u : kFull;
-  for (int it = threadIdx.x; it < nk * W32; it += blockDim.x) {
-    const int kl = it / W32;
-    const int w = it - kl * W32;
-    const int k = k0 + kl;
-    const int len = var_len[k];
-    uint32_t acc = (len < 0 || len > Lr) ? 0u : kFull;
-    const uint8_t* v = codes + kl * Lr;
-    for (int j = 0; j < len && acc; ++j) {
-      const uint32_t* pl = plane + v[j] * NWp + w + (j >> 5);
-      acc &= __funnelshift_r(pl[0], pl[1], j & 31);
-    }
+  uint32_t* seg_words = out + seg_out[item.x];
+  auto store = [&](const Item& r, uint32_t acc) {
+    const int w = word0 + r.wl;
     if (w == W32 - 1) acc &= last_mask;
-    out[(static_cast<size_t>(k) * P + p) * W32 + w] = acc;
+    const int64_t k = static_cast<int64_t>(item.z + r.pl) * nvar + r.v;
+    seg_words[(k * P + item.y) * W32 + w] = acc;
+  };
+  const int n_items = n_pairs * nvar * nw;
+  for (int round = 0; round < n_items; round += blockDim.x) {  // block-uniform
+    if (threadIdx.x == 0) queue_n = 0;
+    __syncthreads();
+    const int it = round + threadIdx.x;
+    if (it < n_items) {
+      const Item r = block_item(it, codes, pair_rd, read_len, Lr, nvar, nw);
+      uint32_t acc = (r.len < 0 || r.len > Lr) ? 0u : kFull;
+      const int j1 = min(r.len, kSerial);
+      for (int j = 0; j < j1 && acc; ++j) {
+        const uint32_t* pw = plane + r.codes[j] * NWs + r.wl + (j >> 5);
+        acc &= __funnelshift_r(pw[0], pw[1], j & 31);
+      }
+      if (acc && r.len > kSerial) {
+        const int q = atomicAdd(&queue_n, 1);
+        queue_item[q] = it;
+        queue_acc[q] = acc;
+      } else {
+        store(r, acc);
+      }
+    }
+    __syncthreads();
+    for (int q = warp; q < queue_n; q += n_warps) {  // warp-uniform
+      const Item r = block_item(queue_item[q], codes, pair_rd, read_len, Lr, nvar, nw);
+      uint32_t acc = kFull;
+      for (int j = kSerial + lane; j < r.len; j += 32) {
+        const uint32_t* pw = plane + r.codes[j] * NWs + r.wl + (j >> 5);
+        acc &= __funnelshift_r(pw[0], pw[1], j & 31);
+      }
+      acc = __reduce_and_sync(kFull, acc) & queue_acc[q];
+      if (lane == 0) store(r, acc);
+    }
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-// path u8 [P, Lp] (>= 4: wildcard), var u8 [K, Lr] (>= 4: N), var_len i32
-// [K] -> out u32 [K, P, W32], W = Lp - Lr + 1 >= 1. Returns
-// cudaGetLastError() after the launch (or the error of the shared-memory
-// setup).
-extern "C" int groot_match_bits(const void* path, const void* var,
-                                const void* var_len, int P, int Lp, int K,
-                                int Lr, void* out, void* stream) {
-  const int W = Lp - Lr + 1;
-  if (P < 0 || K < 0 || Lr < 0 || W < 1 || P > 65535)
+// rows u8 (flat), row_off i64 [NR], row_len i32 [NR], reads u8 [R, Lr],
+// read_len i32 [R], pairs i32, segs i32 [S, 8] (pair offset, pairs, first
+// row, rows, W, W32, pairs a block, words a block), seg_out i64 [S], work
+// i32 [n_work, 4] (16-byte aligned: segment, row within it, first pair,
+// first word) -> out u32. NWs: the most plane words a block reads (its
+// chunk's words + ceil(Lr/32)); pg_max: the most pairs a block stages.
+// Returns cudaGetLastError() after the launch, or the error of the
+// shared-memory setup (cudaErrorInvalidValue when a block's planes and
+// reads do not fit the card's opt-in shared memory).
+extern "C" int groot_match_bits(const void* rows, const void* row_off,
+                                const void* row_len, const void* reads,
+                                const void* read_len, int Lr, const void* pairs,
+                                const void* segs, const void* seg_out,
+                                const void* work, int n_work, int nvar, int NWs,
+                                int pg_max, void* out, void* stream) {
+  if (n_work < 0 || Lr < 1 || NWs < 1 || pg_max < 1 || (nvar != 1 && nvar != 6))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (P == 0 || K == 0) return 0;
-  const int W32 = (W + 31) / 32;
-  const int NWp = W32 + (Lr + 31) / 32;
-  int KG = W32 >= kThreads ? 1 : kThreads / W32;
-  if (KG > K) KG = K;
+  if (n_work == 0) return 0;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the planes and one variant's codes must fit; fewer variants a block
-  // where KG of them do not
-  const long long planes = 4LL * kPlanes * NWp;
-  if (planes + Lr > optin) return static_cast<int>(cudaErrorInvalidValue);
-  if (Lr > 0 && planes + 1LL * KG * Lr > optin)
-    KG = static_cast<int>((optin - planes) / Lr);
-  const size_t smem = static_cast<size_t>(planes + 1LL * KG * Lr);
+  const long long smem =
+      4LL * kPlanes * NWs + 1LL * pg_max * (nvar == 6 ? 2 : 1) * Lr;
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(match_bits_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + KG - 1) / KG, P);
-  match_bits_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(path), static_cast<const uint8_t*>(var),
-      static_cast<const int32_t*>(var_len), P, Lp, K, Lr, W, W32, NWp, KG,
-      static_cast<uint32_t*>(out));
+  match_bits_kernel<<<n_work, kThreads, static_cast<size_t>(smem),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(rows), static_cast<const int64_t*>(row_off),
+      static_cast<const int32_t*>(row_len), static_cast<const uint8_t*>(reads),
+      static_cast<const int32_t*>(read_len), Lr,
+      static_cast<const int32_t*>(pairs), static_cast<const int32_t*>(segs),
+      static_cast<const int64_t*>(seg_out), static_cast<const int4*>(work),
+      nvar, NWs, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -974,8 +974,9 @@ def _process_batch(
             per_graph.setdefault(graph_id, []).append(
                 (read, mappings, float(kmer_counts[i]))
             )
-    for gid, items in per_graph.items():
-        for records, _n in aligner.align_read_batch(info.store[gid], items):
+    # one match-volume call for the whole batch, then each graph's cascade
+    for results in aligner.align_graph_batches(per_graph).values():
+        for records, _n in results:
             stats.alignment_count += len(records)
             if bam_writer is not None:
                 for rec in records:

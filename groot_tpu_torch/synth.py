@@ -2,8 +2,9 @@
 
 Used by the port's tests (a few small clusters) and by chip_smoke.py (a
 database at the scale of arg-annot.90: 583 clusters, ~1,700 alleles).
-`cascade_case` and `match_bits_case` make the inputs of one pair-cascade
-or match-bits call directly. A cluster is a founder sequence plus alleles
+`cascade_case`, `match_bits_case` and `match_bits_batch_case` make the
+inputs of one pair-cascade, match-bits or batched match-bits call
+directly. A cluster is a founder sequence plus alleles
 at most `max_div` divergent from it (substitutions, plus a few short
 deletions that become MSA gaps); each cluster is written as an aligned
 FASTA `cluster-N.msa`, the layout `index` reads. Reads are sampled from the ungapped alleles with numpy; a FASTQ may
@@ -365,3 +366,68 @@ def match_bits_case(seed: int, P: int = 3, Lp: int = 200, K: int = 40,
     var_len[u < zero_frac] = 0
     var_len[u > 1 - pad_frac] = -1
     return path, var, var_len
+
+
+def match_bits_batch_case(seed: int, n_graphs: int = 6, rows: Tuple[int, int] = (1, 5),
+                          row_len: Tuple[int, int] = (300, 1500), n_reads: int = 60,
+                          read_len: Sequence[int] = (20, 25, 31, 32, 60, 100, 150),
+                          per_graph: Tuple[int, int] = (1, 12), n_frac: float = 0.01):
+    """Seeded inputs of one batched match-bits call
+    (`align.aligner.match_bits_batch`, nvar 6) as numpy arrays: path rows
+    (u8 codes, flat, each row's real bases; int64 row_off, int32 row_len),
+    reads (u8 [R, Lr], Lr the longest rounded up to a multiple of 32, N past
+    a read's end; int32 read_len), int32 pairs and int64 segs (first pair,
+    pairs, first row, rows, W = the graph's longest row + 1). A graph's rows
+    share a founder (a few substitutions each, and a deletion, so its rows
+    differ in length; an `n_frac` share of Ns); most reads are cut from a
+    row (some reverse complemented, some with an N), the rest random; each
+    graph takes a random subset of the reads, so a read can be seeded to
+    several graphs."""
+    rng = np.random.default_rng(seed)
+    codes, lens, segs, graph_rows = [], [], [], []
+    for _g in range(n_graphs):
+        founder = rng.integers(0, 4, int(rng.integers(*row_len))).astype(np.uint8)
+        P = int(rng.integers(rows[0], rows[1] + 1))
+        segs.append([0, 0, len(lens), P, 0])
+        grows = []
+        for _p in range(P):
+            row = founder.copy()
+            sub = rng.random(len(row)) < 0.02
+            row[sub] = rng.integers(0, 4, int(sub.sum()))
+            row[rng.random(len(row)) < n_frac] = 4
+            if rng.random() < 0.5:
+                at = int(rng.integers(0, len(row) - 20))
+                row = np.delete(row, np.s_[at:at + int(rng.integers(1, 20))])
+            grows.append(row)
+            codes.append(row)
+            lens.append(len(row))
+        segs[-1][4] = max(len(r) for r in grows) + 1
+        graph_rows.append(grows)
+    R = n_reads
+    rlen = np.asarray(read_len)[rng.integers(0, len(read_len), R)].astype(np.int32)
+    Lr = -(-max(int(rlen.max()), 32) // 32) * 32
+    reads = np.full((R, Lr), 4, np.uint8)
+    for i in range(R):
+        n = int(rlen[i])
+        if rng.random() < 0.85:
+            grows = graph_rows[int(rng.integers(0, n_graphs))]
+            row = grows[int(rng.integers(0, len(grows)))]
+            at = int(rng.integers(0, max(len(row) - n, 0) + 1))
+            r = np.where(row[at:at + n] >= 4, rng.integers(0, 4, n), row[at:at + n])
+            if rng.random() < 0.5:
+                r = _RC_CODE[r[::-1]]
+        else:
+            r = rng.integers(0, 4, n)
+        if rng.random() < 0.2:
+            r[int(rng.integers(0, n))] = 4
+        reads[i, :n] = r
+    pairs = []
+    for seg in segs:
+        take = rng.choice(R, size=min(int(rng.integers(per_graph[0], per_graph[1] + 1)), R),
+                          replace=False)
+        seg[0], seg[1] = len(pairs), len(take)
+        pairs.extend(take.tolist())
+    lens = np.asarray(lens, np.int32)
+    row_off = (np.cumsum(lens) - lens).astype(np.int64)
+    return (np.concatenate(codes), row_off, lens, reads, rlen,
+            np.asarray(pairs, np.int32), np.asarray(segs, np.int64))

@@ -833,6 +833,7 @@ MATCH_BITS_CASES = [
     dict(seed=9, P=7, Lp=1660, K=1200, Lr=160, pad=160),  # the main path: 200 reads, 7 rows
     dict(seed=10, P=24, Lp=3160, K=3000, Lr=160, pad=160, n_frac=0.001),  # a wide graph
     dict(seed=11, P=2, Lp=9000, K=40, Lr=160, pad=160),  # W32 > 256: a variant a block
+    dict(seed=12, P=2, Lp=1000, K=400, Lr=1000),     # W = 1, long variants: few a block
 ]
 
 
@@ -892,5 +893,92 @@ def test_host_aligner_on_card_matches_cpu(cuda, tmp_path):
         w = [n.kmer_freq for _g, g in sorted(store.items()) for n in g.sorted_nodes]
         out[str(dev)] = (recs, w, launched)
     assert out["cuda"][2] == len(per_graph) and out["cpu"][2] == 0
+    assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) > 50
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-12)
+
+
+MATCH_BITS_BATCH_CASES = [
+    dict(seed=1),                                       # 6 graphs, reads 20-150 bp
+    dict(seed=2, read_len=(20, 24, 31)),                # every read under 32 bp
+    dict(seed=3, n_graphs=500, rows=(1, 6), n_reads=2048, per_graph=(1, 8)),  # the main path
+    dict(seed=4, n_graphs=2, rows=(1, 3), row_len=(39_000, 41_000), n_reads=24),  # 40 kb rows
+    dict(seed=5, n_graphs=40, rows=(1, 24), per_graph=(1, 60), n_frac=0.1),  # wide graphs, Ns
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [None, (64, 3)])
+@pytest.mark.parametrize("case", MATCH_BITS_BATCH_CASES)
+def test_match_bits_batch_kernel_matches_plain(cuda, case, layout, monkeypatch):
+    """One launch for a batch of graphs, bit for bit the plain version's
+    (on the card and on the CPU): mixed read lengths, rows of unequal
+    length, reads in several graphs, 40 kb rows split into chunks, the main
+    path's ~500 graphs; and a layout of 3-word chunks and small groups."""
+    if layout is not None:
+        monkeypatch.setattr(aligner, "ITEMS_PER_BLOCK", layout[0])
+        monkeypatch.setattr(aligner, "MAX_BLOCK_WORDS", layout[1])
+    args = synth.match_bits_batch_case(**case)
+    rows = torch.from_numpy(args[0]).to(cuda)
+    before = aligner.MATCH_BITS.launches
+    got, off = aligner.match_bits_batch(rows, *args[1:])
+    torch.cuda.synchronize()
+    assert aligner.MATCH_BITS.launches == before + 1
+    got = got.view(torch.int32).cpu()
+    dev_args = [torch.from_numpy(a).to(cuda) for a in args[:-1]]
+    assert torch.equal(got, aligner.match_bits_batch_torch(*dev_args, args[-1])
+                       .view(torch.int32).cpu())
+    assert torch.equal(got, aligner.match_bits_batch_torch(
+        *(torch.from_numpy(a) for a in args[:-1]), args[-1]).view(torch.int32))
+    assert got.numel() == off[-1] and bool(got.any())
+
+
+@pytest.mark.cuda
+def test_match_bits_kernel_raises_when_a_block_does_not_fit(cuda):
+    """Planes and reads past the card's opt-in shared memory: the launch is
+    refused and the wrapper raises (no CPU fallback)."""
+    Lr = 200_000
+    path = torch.full((1, Lr + 10), 4, dtype=torch.uint8, device=cuda)
+    var = torch.zeros((1, Lr), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="groot_match_bits"):
+        aligner.match_bits(path, var, torch.full((1,), Lr, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_host_aligner_graph_batches_one_launch(cuda, tmp_path):
+    """`align_graph_batches` on the card launches the kernel once for all
+    the graphs of a batch and equals the CPU's: records, mappings weighted,
+    node weights."""
+    alleles = synth.tiny_db(str(tmp_path / "msa"))
+    run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+                   index_dir=str(tmp_path / "idx")), str(tmp_path / "msa"), "cpu")
+    info = Info.load(str(tmp_path / "idx" / "groot.gg"))
+    index = ContainmentIndex.load(str(tmp_path / "idx" / "groot.lshe"))
+    seqs, _which, _starts = synth.sample_reads(
+        np.random.default_rng(7), alleles, 300, lengths=(25, 60, 100, 150),
+        n_frac=0.05, tail_frac=0.2,
+    )
+    reads = [FastqRead(id=b"@b%d" % i, seq=s, qual=b"I" * len(s))
+             for i, s in enumerate(seqs)]
+    batch = _make_batch(reads)
+    kc = (batch.lengths - K + 1).astype(np.int32)
+    q64 = khf_sketch(torch.from_numpy(batch.codes).to(cuda),
+                     torch.from_numpy(batch.lengths).to(cuda), K, S)
+    hits = index.query_batch(q64.cpu().numpy().view(np.uint64), kc, 0.99)
+    per_graph = {}
+    for read, res, n in zip(reads, hits, kc):
+        for gid, keys in res.items():
+            per_graph.setdefault(gid, []).append((read, keys, float(n)))
+    assert len(per_graph) > 1
+    out = {}
+    for dev in (cuda, "cpu"):
+        store = copy.deepcopy(info.store)
+        al = aligner.GraphAligner(store, device=dev)
+        before = aligner.MATCH_BITS.launches
+        res = al.align_graph_batches(per_graph)
+        launched = aligner.MATCH_BITS.launches - before
+        recs = [vars(r) for gid in per_graph for records, _n in res[gid] for r in records]
+        w = [n.kmer_freq for _g, g in sorted(store.items()) for n in g.sorted_nodes]
+        out[str(dev)] = (recs, w, launched)
+    assert out["cuda"][2] == 1 and out["cpu"][2] == 0
     assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) > 50
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-12)

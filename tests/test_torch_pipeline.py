@@ -146,6 +146,32 @@ def test_engine_matches_reference(data, port_engine, ref_engine):
     assert got[4] == want[4] and got[4]
 
 
+def test_host_engine_one_match_volume_call_per_batch(data, monkeypatch):
+    """The `host` engine computes a batch's match volumes, every graph its
+    reads touch, in one `match_bits_batch` call: as many calls as batches
+    that map a read (the run's 200 reads in batches of 128: two)."""
+    from groot_tpu_torch.align import aligner
+
+    calls, batches = [], []
+    wrapper, per_batch = aligner.match_bits_batch, aligner.GraphAligner.align_graph_batches
+
+    def count_calls(*a, **kw):
+        calls.append(len(a[-1]))  # the segments: one a graph
+        return wrapper(*a, **kw)
+
+    def count_batches(self, per_graph):
+        batches.append(len(per_graph))
+        return per_batch(self, per_graph)
+
+    monkeypatch.setattr(aligner, "match_bits_batch", count_calls)
+    monkeypatch.setattr(aligner.GraphAligner, "align_graph_batches", count_batches)
+    tmp, fq = data
+    stats = _align("port", str(tmp / "port"), fq, str(tmp / "p-calls.bam"), "host")[0]
+    assert stats.mapped > 0 and stats.alignment_count > 20
+    assert len(calls) == sum(n > 0 for n in batches) == 2
+    assert calls == [n for n in batches if n] and max(calls) > 1
+
+
 def test_device_engine_stage_times(data):
     """The device engine's stage_times split its host tail: drain A, a part
     of reduce_s, has its own key, and the combos that verification sends to
