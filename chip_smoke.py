@@ -63,19 +63,38 @@ Phases, any failure exits non-zero:
      card's busy share of each run's wall time and each kernel's device
      time; each kernel's traced launches beside its wrapper's count for the
      same run, where a launch the trace lacks must be one of the kernel
-     records the profiler lost (a runtime launch call with no record).
+     records the profiler lost (a runtime launch call with no record);
+  11. the main path at sketch size 128 (past the 64 slots a khf_sketch warp
+     keeps in registers): phase 4's database indexed at w150 k31 s128 by
+     `index --device cuda` and by the native CPU route (the two indexes
+     must be equal), the 120,000 reads aligned by the device, cascade and
+     hash engines, the host engine on the first 20,000 (with a hash run on
+     the same reads), each equal to its hash run on the five counts, the
+     device run once more under torch.profiler (the card's busy share, as
+     phase 10), and the data-plane step at t = 0.97, each path's kernels
+     counted from 0 before it; the device and hash runs here and in phase
+     5 print the host clock of their index load and LSH queries;
+  12. routes: each kernel route that a size past the shared memory takes
+     (khf_sketch at s = 65, 128 and 256; lsh_query at s = 128 and at
+     C = 6,144, its global route; window_sketch at s = 1,024, in slot
+     groups; match_bits with 100 kb and 200 kb reads among 150 bp reads,
+     on the shared route and with every block on the global route;
+     em_batched at E = 30,000, seeds 1-3) held against its plain version
+     (bit for bit; EM: iterations equal, alphas within 1e-5 of max(1,
+     |alpha|)) and timed; the kernels line carries them under `routes`.
 With --baseline-csrc DIR (an earlier groot_tpu_torch/csrc, e.g. written
 out with git show), DIR's khf_sketch, read_hash, seed_scan, window_sketch,
 em_batched, lsh_query and match_bits kernels are built into their own
 library and timed beside this version's at the same inputs (match_bits
-with its one-graph signature, a launch a graph of the first batch, its
-times summed over the batch; equal outputs required; for
+with the earlier 8-column segment table and work table, lsh_query and
+em_batched without the scratch argument, window_sketch without the slot
+group; equal outputs required; for
 em_batched equal iteration counts and alphas within 1e-5 of max(1, |alpha|),
 as summation orders may differ; for lsh_query contain within 1 ulp;
 `baseline_ms`, `baseline_device_ms`, and for lsh_query at t = 0.97 the
 banded mode's `banded_timed_device_ms`, `banded_baseline_device_ms`).
-Every kernel must launch in the run of its command or path (4, 5, 5b, 5c, 6
-or 8), counted from 0 just before it. The last line is {"ok": true, "device":
+Every kernel must launch in the run of its command or path (4, 5, 5b, 5c, 6,
+8 and 11), counted from 0 just before it. The last line is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launches, errors,
 times (`ms`: CUDA events over back-to-back calls, the Python wrapper
 included; `device_ms`: the device time a launch in phase 10's traces, all
@@ -312,25 +331,37 @@ class _Baseline:
         src = Path(csrc).resolve()
         t0 = time.time()
         self.lib = ctypes.CDLL(str(_build.build(src, src / "_build")))
+        # before groot_smem_optin came in, lsh_query and em_batched took no
+        # scratch pointer (their last argument before the stream)
+        self.no_scratch = not hasattr(self.lib, "groot_smem_optin")
         _say(f"baseline kernels from {csrc}: built in {time.time() - t0:.1f}s")
 
     # the earlier C signatures, device functions and wrappers of kernels
     # redesigned since: window_sketch took row offsets, a window scratch,
-    # flags and tile counts, and ran three device functions
-    # match_bits took one graph's path codes [P, Lp], variant codes [K, Lr]
-    # and var_len [K], and launched once a graph
+    # flags and tile counts, and ran three device functions; match_bits
+    # took an 8-column segment table, one work table, the most plane words
+    # and the most pairs a block (_earlier_match_layout)
     _ARGTYPES = {"window_sketch": ("P",) * 3 + ("I",) * 6 + ("I64",) + ("P",) * 7,
-                 "match_bits": ("P",) * 3 + ("I",) * 4 + ("P",)}
+                 "match_bits": ("P",) * 5 + ("I",) + ("P",) * 4 + ("I",) * 4 + ("P",)}
     _FUNCS = {"window_sketch": ("window_sketch_kernel", "window_scan_kernel",
                                 "window_compact_kernel")}
+    # an argument this version's C signature added (its position) and the
+    # entry point that came in with it: lsh_query's and em_batched's
+    # scratch, window_sketch's slot group
+    _ADDED = {"lsh_query": (17, "groot_smem_optin"),
+              "em_batched": (21, "groot_smem_optin"),
+              "window_sketch": (10, "groot_window_slot_group")}
 
     def earlier_signature(self, name: str) -> bool:
         """Whether the earlier library's entry point of `name` has the C
         signature in _ARGTYPES rather than this version's: window_sketch's
-        changed where groot_window_tile_width came in."""
+        changed where groot_window_tile_width came in, match_bits' where
+        groot_smem_optin did."""
         if name == "window_sketch":
             return not hasattr(self.lib, "groot_window_tile_width")
-        return name in self._ARGTYPES
+        if name == "match_bits":
+            return self.no_scratch
+        return False
 
     def _entry(self, name: str, types=None):
         import ctypes
@@ -345,11 +376,20 @@ class _Baseline:
 
     @contextlib.contextmanager
     def _swapped(self, name: str):
-        """This version's wrapper of `name` launching the earlier kernel."""
+        """This version's wrapper of `name` launching the earlier kernel
+        (an argument it did not take yet left out: _ADDED)."""
         from groot_tpu_torch import _build
 
         kern = _build.KERNELS[name]
-        saved, kern._fn = kern._fn, self._entry(name)
+        i, marker = self._ADDED.get(name, (None, None))
+        if marker is not None and not hasattr(self.lib, marker):
+            entry = self._entry(name, kern.argtypes[:i] + kern.argtypes[i + 1:])
+
+            def fn(*a):  # a[-1] is the stream
+                return entry(*a[:i], *a[i + 1:])
+        else:
+            fn = self._entry(name)
+        saved, kern._fn = kern._fn, fn
         try:
             yield
         finally:
@@ -385,39 +425,39 @@ class _Baseline:
         row_off = tile_off[::n_tiles]
         return out_row[:M], out_col[:M], out_sk[:M], row_off[1:] - row_off[:-1]
 
-    def match_bits(self, calls, got, off, dev) -> dict:
-        """The earlier match-bits kernel launched once a graph, as the
-        aligner called it before one launch covered a batch, on each
-        graph's inputs `calls` ([(path codes, variant codes, var_len)]): its
-        bits must equal this version's one launch (`got`, graph s at words
-        off[s]:off[s + 1]); its CUDA-event ms and its device ms, both
-        summed over the batch's graphs."""
+    def match_bits(self, args, got, off, dev) -> dict:
+        """The earlier match-bits kernel (before slot-sized staging: an
+        8-column segment table, every block staging Lr bases a code row)
+        on this version's batch arguments `args` (as match_bits_batch
+        takes them), its layout made by _earlier_match_layout: its bits must
+        equal this version's launch (`got`); its CUDA-event ms and device
+        ms."""
         from groot_tpu_torch import _build
+        from groot_tpu_torch.align import aligner
 
         entry = self._entry("match_bits", [getattr(_build, t)
                                            for t in self._ARGTYPES["match_bits"]])
+        rows, row_off, row_len, reads, read_len, pairs, segs = args
+        Lr = reads.shape[1]
+        seg_tab, work, nws, pg_max = _earlier_match_layout(
+            np.asarray(segs, np.int64), 6, Lr, aligner.ITEMS_PER_BLOCK,
+            aligner.MAX_BLOCK_WORDS)
+        dargs = [a.to(dev) if isinstance(a, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (row_off, row_len, reads, read_len, pairs, seg_tab,
+                           off[:-1], work)]
 
         def fn():
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            outs = []
-            for path, var, var_len in calls:
-                (P, Lp), (Kv, Lr) = path.shape, var.shape
-                out = torch.empty((Kv, P, -(-(Lp - Lr + 1) // 32)), dtype=torch.int32,
-                                  device=dev)
-                err = entry(path.data_ptr(), var.data_ptr(), var_len.data_ptr(), P, Lp,
-                            Kv, Lr, out.data_ptr(), stream)
-                _check(err == 0, f"baseline match_bits launch failed ({err})")
-                outs.append(out.reshape(-1))
-            return outs
+            out = torch.empty(int(off[-1]), dtype=torch.int32, device=dev)
+            err = entry(rows.data_ptr(), *(a.data_ptr() for a in dargs[:4]), Lr,
+                        *(a.data_ptr() for a in dargs[4:]), len(work), 6, nws,
+                        pg_max, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            _check(err == 0, f"baseline match_bits launch failed ({err})")
+            return out
 
-        outs = fn()
-        _sync(dev)
-        for s, o in enumerate(outs):
-            _check(torch.equal(o, got[off[s]:off[s + 1]]),
-                   f"baseline match_bits graph {s} != this version's kernel")
-        per_launch = _device_ms(fn, "match_bits", iters=3)
-        return {"baseline_ms": _time_ms(fn, dev, 5),
-                "baseline_device_ms": per_launch * len(calls) if per_launch else None}
+        _check(torch.equal(fn(), got), "baseline match_bits != this version's kernel")
+        return {"baseline_ms": _time_ms(fn, dev),
+                "baseline_device_ms": _device_ms(fn, "match_bits")}
 
     def timed(self, name: str, fn, want, dev, same=None) -> dict:
         """`fn` calls this version's wrapper of kernel `name` (or, where the
@@ -444,6 +484,241 @@ class _Baseline:
         return {"baseline_ms": _time_ms(fn, dev),
                 "baseline_device_ms": _device_ms(
                     fn, name, self._FUNCS.get(name) if earlier else None)}
+
+
+def _earlier_match_layout(segs, nvar: int, Lr: int, items: int, max_words: int):
+    """The earlier match-bits kernel's launch layout (its work_table, as it
+    was before the blocks staged a segment's own bases): the segment table
+    int32 [S, 8], the work table, the most plane words a block reads (its
+    words + ceil(Lr/32)) and the most pairs a block stages."""
+    pair0, n, row0, n_rows, W = segs.T
+    W32 = -(-W // 32)
+    n_chunks = -(-W32 // max_words)
+    WC = -(-W32 // np.maximum(n_chunks, 1))
+    PG = np.maximum(np.minimum(items // (nvar * np.maximum(WC, 1)),
+                               32 * 1024 // ((2 if nvar == 6 else 1) * Lr)), 1)
+    n_groups = -(-n // PG)
+    PG = -(-n // np.maximum(n_groups, 1))
+    per = n_rows * n_groups * n_chunks
+    seg = np.repeat(np.arange(len(segs)), per)
+    local = np.arange(len(seg)) - np.repeat(np.cumsum(per) - per, per)
+    chunk = local % n_chunks[seg]
+    t = local // n_chunks[seg]
+    work = np.stack([seg, t // n_groups[seg], t % n_groups[seg] * PG[seg],
+                     chunk * WC[seg]], 1).astype(np.int32)
+    seg_tab = np.stack([pair0, n, row0, n_rows, W, W32, PG, WC], 1).astype(np.int32)
+    live = per > 0
+    nws = int(WC[live].max()) + -(-Lr // 32) if live.any() else 1
+    return seg_tab, work, nws, int(PG[live].max()) if live.any() else 1
+
+
+S128_HOST_READS = 20_000  # the host engine's subset at s = 128
+
+
+def s128_phase(work: str, fq: str, dev):
+    """Phase 11: the main path at sketch size 128 (khf_sketch's slot
+    groups; the query and the data plane past 64 slots): phase 4's
+    database indexed at w150 k31 s128 by `index --device cuda` and again
+    natively on the CPU (the two must be equal), the reads aligned by the
+    device engine (once more under the profiler, for the card's busy
+    share), the hash and cascade engines, and by the host
+    engine and the hash engine on the first S128_HOST_READS reads (the
+    host engine takes ~70 s for all 120,000 at s = 128, more than this
+    phase may add to the run), each equal to its hash run on the five
+    counts, the data-plane step at t = 0.97. Returns ({kernel: launches in
+    its path's run}, the data plane's {kernel: metrics})."""
+    _say("phase 11: the main path at s = 128")
+    launches = build_index(work, dev, "idx128", 128)
+    e2e, hash_run = end_to_end(work, fq, dev, "idx128")
+    launches.update(e2e)
+    _trace_run("align s=128", lambda: align_and_report(work, fq, "device", dev.type,
+                                                       "idx128", "device-traced128"))
+    launches.update(cascade_phase(work, fq, dev, hash_run, "idx128"))
+    sub = os.path.join(work, "reads-host128.fq")
+    with open(fq) as src, open(sub, "w") as dst:
+        for _ in range(4 * S128_HOST_READS):
+            dst.write(src.readline())
+    host_sub = align_and_report(work, sub, "hash", "cpu", "idx128", "hash-sub128")
+    launches.update(host_phase(work, sub, dev, (host_sub[0], host_sub[1], host_sub[2]),
+                               "idx128"))
+    plane_launches, plane_metrics, _fn = data_plane(work, fq, dev, idx="idx128",
+                                                    thresholds=(0.97,))
+    launches.update(plane_launches)
+    return launches, plane_metrics
+
+
+def _route(name: str, fn, plain_fn, same, dev, kernel: str, bound: dict,
+           iters: int = 5, funcs=None) -> dict:
+    """One kernel route against its plain version: `same(got, want)` must
+    hold; the largest gap to it, absolute and relative to max(1, |plain|);
+    the kernel's CUDA-event and device ms (its device functions `funcs`, by
+    default KERNEL_FUNCS[kernel]), the plain version's ms."""
+    got, want = fn(), plain_fn()
+    _sync(dev)
+    _check(same(got, want), f"{kernel} {name}: kernel != plain")
+    pairs = list(zip(got, want) if isinstance(got, tuple) else ((got, want),))
+    gaps = [(a.double() - b.double()).abs().nan_to_num(0.0) for a, b in pairs]
+    err = max(float(g.max()) if g.numel() else 0.0 for g in gaps)
+    rel = max(float((g / b.double().abs().clamp(min=1.0)).max()) if g.numel() else 0.0
+              for g, (_a, b) in zip(gaps, pairs))
+    m = {"route": name, "max_abs_err": err, "max_rel_err": rel,
+         "ms": _time_ms(fn, dev, iters),
+         "plain_ms": _time_ms(plain_fn, dev, 1),
+         "device_ms": (_device_ms(fn, kernel, funcs, iters=iters)
+                       if dev.type == "cuda" else None),
+         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+    _say(f"{kernel} {name}: equal to plain (largest gap {err:.6g}, {rel:.3g} of "
+         f"max(1, |plain|)); kernel {m['ms']:.4f} ms (device "
+         f"{m['device_ms']} ms), plain {m['plain_ms']:.4f} ms, bound "
+         f"{bound['bound_ms']:.6f} ms ({bound['bound_by']})")
+    return m
+
+
+def _lsh_route_case(rng, N: int, s: int, B: int = 2048):
+    """Window sketches over a 4-value alphabet (busy buckets: many
+    candidates a band) with their K = 1 band table, and B queries: copies
+    of windows with some slots changed, k-mer counts 1..200."""
+    from groot_tpu_torch.index import lshe
+
+    sk = rng.integers(1, 5, size=(N, s)).astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    sig = lshe._mix_bands_np(sk, 1)
+    order = np.argsort(sig, axis=0, kind="stable")
+    sigs = np.take_along_axis(sig, order, axis=0).T.copy()
+    q = sk[rng.integers(0, N, size=B)].copy()
+    flip = rng.random(q.shape) < rng.random((B, 1)) * 0.3
+    q[flip] = rng.integers(1, 1 << 62, size=int(flip.sum())).astype(np.uint64)
+    kc = rng.integers(1, 201, size=B).astype(np.int32)
+    return q, kc, sk, sigs, order.T.astype(np.int32).copy()
+
+
+def routes_phase(work: str, dev) -> dict:
+    """Phase 12: each kernel route that a size past the shared memory
+    takes, against its plain version, timed. Returns {kernel: [route
+    metrics]}."""
+    from groot_tpu_torch import synth
+    from groot_tpu_torch.align import aligner
+    from groot_tpu_torch.config import Info
+    from groot_tpu_torch.em import em
+    from groot_tpu_torch.graph.pack import pack_graph_paths
+    from groot_tpu_torch.index import lshe, window
+    from groot_tpu_torch.io import native
+    from groot_tpu_torch.ops import nthash
+    from groot_tpu_torch.ops.sketch import khf_sketch
+    from groot_tpu_torch.pipeline.index_pipeline import build_graphs, find_msa_files
+
+    _say("phase 12: kernel routes past the shared memory")
+    rng = np.random.default_rng(12)
+    routes = {}
+    eq = lambda a, b: torch.equal(a, b)  # noqa: E731
+
+    # khf_sketch: more than 64 slots, in groups of at most 64
+    B, L = 2048, 150
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    lens = rng.integers(K - 2, L + 1, size=B).astype(np.int32)
+    c, v = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+    n_kmer = int(np.clip(lens.astype(np.int64) - K + 1, 0, None).sum())
+    routes["khf_sketch"] = [
+        _route(f"s={s} (groups of <= 64)", lambda s=s: khf_sketch(c, v, K, s),
+               lambda s=s: nthash.khf_sketch_torch(c, v, K, s), eq, dev, "khf_sketch",
+               _bound(int(lens.sum()) + lens.nbytes + B * s * 8, n_kmer * (8 + 4 * s)))
+        for s in (65, 128, 256)]
+
+    # lsh_query: s = 128 (shared route, C = 3,072) and s = 256 at K = 1
+    # (C = 6,144: the global route)
+    routes["lsh_query"] = []
+    for s in (128, 256):
+        q, kc, sk, sigs, idx = _lsh_route_case(rng, 6000, s)
+        args = [torch.from_numpy(x).to(dev) for x in (
+            q.view(np.int64), kc, sk.view(np.int64), sigs.view(np.int32), idx)]
+        kw = dict(K=1, M=lshe.MAX_PER_BAND, domain_size=120, threshold=0.97)
+        C = s * lshe.MAX_PER_BAND
+        glob = (dev.type == "cuda"
+                and lshe.query_scratch_bytes(B, s, s, lshe.MAX_PER_BAND, dev) > 0)
+        # as phase 8 counts it: sketches and counts in, ids and
+        # containments out, one lower-bound search a band, each real
+        # candidate's id and sketch row once; ops: the band mix, the
+        # searches, one compare a slot of a real candidate
+        n_cand = _n_candidates(*args, **kw)
+        search = s * max(len(sk), 2).bit_length()
+        bound = _bound(_nbytes(args[0], args[1]) + 8 * B * C + 4 * B * search
+                       + n_cand * (4 + 8 * s), B * (8 * s + search) + n_cand * s)
+        routes["lsh_query"].append(_route(
+            f"s={s} K=1 C={C} ({'global' if glob else 'shared'} route)",
+            lambda: lshe.query_device(*args, **kw),
+            lambda: lshe.query_device_torch(*args, **kw),
+            lambda a, b: torch.equal(a[0], b[0]) and _ulps(a[1], b[1]) <= 1,
+            dev, "lsh_query", bound))
+
+    # window_sketch: s = 1,024 on 200 of the database's path rows, in
+    # slot groups
+    info = Info(kmer_size=K, sketch_size=1024, window_size=W)
+    graphs = build_graphs(info, find_msa_files(os.path.join(work, "msa")))
+    packs = [pack_graph_paths(g) for g in graphs if not g.masked][:80]
+    _rows, wcodes, wlens = window.path_rows(packs)
+    wcodes, wlens = wcodes[:200], wlens[:200]
+    wc = torch.from_numpy(wcodes).to(dev)
+    wv = torch.from_numpy(wlens.astype(np.int32)).to(dev)
+    tw, sg = window.tile_width(K, 1024, W, dev) if dev.type == "cuda" else ("-", "-")
+    got = window.window_run_starts(wc, wv, K, 1024, W)
+    want = native.window_sketch(wcodes, wlens, K, 1024, W)
+    for a, b in zip(got, want):
+        _check(np.array_equal(a.cpu().numpy().view(b.dtype), b),
+               "window_sketch s=1024: kernel != native")
+    nw = int((wlens - W + 1).clip(min=0).sum())
+    nk = int(np.clip(wlens.astype(np.int64) - K + 1, 0, None).sum())
+    routes["window_sketch"] = [_route(
+        f"s=1024 (tiles of {tw} windows, slot groups of {sg})",
+        lambda: window.window_run_starts(wc, wv, K, 1024, W),
+        lambda: window.window_run_starts_torch(wc, wv, K, 1024, W),
+        lambda a, b: all(torch.equal(x.long(), y.long()) for x, y in zip(a, b)),
+        dev, "window_sketch",
+        _bound(int(wlens.sum()) + wlens.nbytes + len(got[0]) * (8 + 8 * 1024),
+               nk * (8 + 4 * 1024) + nw * 1024 * 2), iters=3)]
+
+    # match_bits: 100 kb and 200 kb reads among 20-150 bp reads, on the
+    # shared route (each segment's staging cut to its rows) and with every
+    # block on the global route
+    margs = synth.match_bits_batch_case(6, n_graphs=6, n_reads=30,
+                                        long_reads=(100_000, 200_000))
+    rows = torch.from_numpy(margs[0]).to(dev)
+    dargs = [torch.from_numpy(a).to(dev) for a in margs[:-1]]
+    pfn = lambda: aligner.match_bits_batch_torch(*dargs, margs[-1]).view(torch.int32)  # noqa: E731
+    sizes = margs[-1][:, 1] * 6 * margs[-1][:, 3] * -(-margs[-1][:, 4] // 32)
+    mbound = _bound(int(margs[2].sum()) + int(margs[4].sum()) + 4 * len(margs[5])
+                    + 4 * int(sizes.sum()), 0)
+    # the global route: a shared-route limit of 0 bytes, which no block fits
+    routes["match_bits"] = [_route(
+        f"100 kb + 200 kb reads ({name} route)",
+        lambda limit=limit: aligner.match_bits_batch(
+            rows, *margs[1:], shared_limit=limit)[0].view(torch.int32),
+        pfn, eq, dev, "match_bits", mbound, iters=3, funcs=funcs)
+        for name, limit, funcs in (("shared", None, None),
+                                   ("global", 0, ("match_bits_global_kernel",)))]
+
+    # em_batched: E = 30,000, graphs of > 27,008 live ecs on both routes
+    # beside one staged as before, at seeds 1-3
+    def em_same(a, b):
+        return torch.equal(a[0], b[0]) and bool(
+            ((a[1] - b[1]).abs() <= 1e-5 * b[1].abs().clamp(min=1.0)).all())
+
+    routes["em_batched"] = []
+    for seed in (1, 2, 3):
+        m, cn, n = synth.em_batch(seed, [3, 40, 33], 30_000, zero_frac=0.02,
+                                  min_fill=0.95)
+        cn[2, 100:] = 0.0
+        eargs = [torch.from_numpy(x).to(dev) for x in (m, cn, n)]
+        it = em.em_batched(*eargs, 10, 3000)[0]
+        e_real = (m.sum(axis=2) > 0).sum(axis=1).astype(np.int64)
+        p_real = n.astype(np.int64)
+        ops = 4 * int((it.cpu().numpy().astype(np.int64) * e_real * p_real).sum())
+        routes["em_batched"].append(_route(
+            f"E=30000 seed {seed} (graphs past the shared memory)",
+            lambda eargs=eargs: em.em_batched(*eargs, 10, 3000),
+            lambda eargs=eargs: em.run_em_batched_torch(*eargs, 10, 3000), em_same,
+            dev, "em_batched",
+            _bound(4 * (int((e_real * p_real).sum()) + int(e_real.sum()) + 2 * len(n)
+                        + int(p_real.sum())), ops), iters=3))
+    return routes
 
 
 def make_data(work: str, seed: int) -> str:
@@ -474,35 +749,36 @@ def _launches(names) -> dict:
     return counts
 
 
-def _index(work: str, out: str, device: str) -> float:
+def _index(work: str, out: str, device: str, s: int = S) -> float:
     from groot_tpu_torch import cli
 
     t0 = time.time()
     rc = cli.main([
         "index", "-m", os.path.join(work, "msa"), "-i", os.path.join(work, out),
-        "-w", str(W), "-k", str(K), "-s", str(S),
+        "-w", str(W), "-k", str(K), "-s", str(s),
         "--log", os.path.join(work, "index.log"), "--device", device,
     ])
     _check(rc == 0, f"index --device {device} failed")
     return time.time() - t0
 
 
-def build_index(work: str, dev) -> dict:
-    """`index --device cuda` (the window-sketch kernel), then the native
-    CPU route on the same MSAs: the two indexes must be equal."""
+def build_index(work: str, dev, idx: str = "idx", s: int = S) -> dict:
+    """`index --device cuda` (the window-sketch kernel) at sketch size s
+    into `idx`, then the native CPU route on the same MSAs: the two indexes
+    must be equal."""
     from groot_tpu_torch import _build
     from groot_tpu_torch.index.lshe import ContainmentIndex
 
     _build.reset_counts()
-    dt = _index(work, "idx", dev.type)
+    dt = _index(work, idx, dev.type, s)
     launches = _launches(["window_sketch"])
-    cpu_dt = _index(work, "idx-cpu", "cpu")
-    a = ContainmentIndex.load(os.path.join(work, "idx", "groot.lshe"))
-    b = ContainmentIndex.load(os.path.join(work, "idx-cpu", "groot.lshe"))
+    cpu_dt = _index(work, f"{idx}-cpu", "cpu", s)
+    a = ContainmentIndex.load(os.path.join(work, idx, "groot.lshe"))
+    b = ContainmentIndex.load(os.path.join(work, f"{idx}-cpu", "groot.lshe"))
     _check(a.window_keys == b.window_keys, "index window keys differ")
     for name, arr in b.soa.items():
         _check(np.array_equal(a.soa[name], arr), f"index soa {name} differs")
-    _say(f"index --device {dev.type}: {len(a.sketches)} window sketches in "
+    _say(f"index --device {dev.type} (s={s}): {len(a.sketches)} window sketches in "
          f"{dt:.2f}s; --device cpu (native) {cpu_dt:.2f}s; the two indexes "
          f"are equal ({len(b.soa)} arrays)")
     return launches
@@ -556,7 +832,7 @@ def window_parity(work: str, dev, base=None) -> dict:
     n_kmer = int(np.clip(lens.astype(np.int64) - K + 1, 0, None).sum())
     bound = _bound(int(lens.sum()) + lens.nbytes + len(got_np[0]) * (8 + 8 * S),
                    n_kmer * (8 + 4 * S) + nw * S * 2)
-    tw = window.tile_width(K, S, W, dev) if dev.type == "cuda" else "-"
+    tw = window.tile_width(K, S, W, dev)[0] if dev.type == "cuda" else "-"
     _say(f"window_sketch on {len(lens)} path rows (<= {codes.shape[1]} bp, "
          f"{nw} windows, {len(got_np[0])} run starts, tiles of {tw} "
          "windows): equal to plain/native; "
@@ -664,16 +940,18 @@ def phase_a_parity(work: str, fq: str, dev, base=None) -> dict:
     return {"read_hash": rh, "seed_scan": ss}
 
 
-def align_and_report(work: str, fq: str, engine: str, device: str):
-    """The CLI's align command, then its report; returns (result, rows,
-    seconds)."""
+def align_and_report(work: str, fq: str, engine: str, device: str,
+                     idx: str = "idx", tag: str = ""):
+    """The CLI's align command on the index in `idx`, then its report,
+    its files named by `tag`; returns (result, rows, seconds)."""
     from groot_tpu_torch import cli
 
-    bam = os.path.join(work, f"{engine}.bam")
-    log = os.path.join(work, f"{engine}.log")
+    tag = tag or (engine if idx == "idx" else f"{engine}-{idx}")
+    bam = os.path.join(work, f"{tag}.bam")
+    log = os.path.join(work, f"{tag}.log")
     args = cli.build_parser().parse_args([
-        "align", "-i", os.path.join(work, "idx"), "-f", fq, "-c", "1",
-        "-g", os.path.join(work, f"graphs-{engine}"), "--bamOut", bam,
+        "align", "-i", os.path.join(work, idx), "-f", fq, "-c", "1",
+        "-g", os.path.join(work, f"graphs-{tag}"), "--bamOut", bam,
         "--log", log, "--device", device,
     ])
     cli._setup_logging(log)
@@ -703,8 +981,8 @@ def _host_hits(index, codes, lens, t):
     from groot_tpu_torch.io import native
 
     kc = (lens - K + 1).astype(np.int32)
-    rows, wins = index.query_batch_np(native.sketch(codes, lens, K, S), kc, t,
-                                      device="cpu")
+    rows, wins = index.query_batch_np(native.sketch(codes, lens, K, index.sketch_size),
+                                      kc, t, device="cpu")
     return set(zip(rows.tolist(), wins.tolist()))
 
 
@@ -715,16 +993,17 @@ def _query_args(di, codes, lens, t, dev):
     from groot_tpu_torch.ops.sketch import khf_sketch
     from groot_tpu_torch.parallel import device_index as pdi
 
+    s = di.sketches.shape[1]
     c = torch.from_numpy(codes).to(dev)
     v = torch.from_numpy(lens).to(dev)
-    q = khf_sketch(c, v, K, S)
+    q = khf_sketch(c, v, K, s)
     kc = (v - (K - 1)).to(torch.int32)
-    full = pdi.full_equality_mode(pdi.local_qmin(lens, K), S,
+    full = pdi.full_equality_mode(pdi.local_qmin(lens, K), s,
                                   float(di.num_window_kmers), t)
     kw = dict(domain_size=di.num_window_kmers, threshold=t)
     if full:
         args = (q, kc, di.sketches, di.fsig_sorted[None], di.forder[None])
-        kw.update(K=S, M=di.cf, qmax=pdi.max_keep_q(float(di.num_window_kmers), t))
+        kw.update(K=s, M=di.cf, qmax=pdi.max_keep_q(float(di.num_window_kmers), t))
     else:
         args = (q, kc, di.sketches, di.sorted_sigs, di.band_idx)
         kw.update(K=di.band_k, M=MAX_PER_BAND)
@@ -756,13 +1035,16 @@ def _n_candidates(q, kc, _sketches, sorted_sigs, band_idx, *, K, M, qmax=None,
     return int(((cands >= 0) & (kc[:, None] > 0)).sum())
 
 
-def data_plane(work: str, fq: str, dev, base=None):
-    """The fused align step over every read at t = 0.99 and 0.97, held to
-    the host replay; the LSH-query and weight-scatter kernels against their
-    plain versions on the first batch (with `base`, the earlier LSH-query
-    kernel timed beside this one); the GROOT_DEVICE_QUERY=1 route; the
-    sharded step over [dev, dev]. Returns (launches, {kernel: metrics},
-    a function that runs the step over the batches once, for the trace)."""
+def data_plane(work: str, fq: str, dev, base=None, idx: str = "idx",
+               thresholds=(0.99, 0.97)):
+    """The fused align step over every read at each threshold (t = 0.99
+    and 0.97) on the index in `idx`, held to the host replay (its hits equal to the host
+    query's where the batches take the full-equality mode); the LSH-query
+    and weight-scatter kernels against their plain versions on the first
+    batch (with `base`, the earlier LSH-query kernel timed beside this
+    one); the GROOT_DEVICE_QUERY=1 route; the sharded step over [dev, dev].
+    Returns (launches, {kernel: metrics}, a function that runs the step
+    over the batches once, for the trace)."""
     from groot_tpu_torch.align.batch_host import WeightAccumulator, WindowTables
     from groot_tpu_torch.config import Info
 
@@ -770,21 +1052,22 @@ def data_plane(work: str, fq: str, dev, base=None):
     from groot_tpu_torch.index import lshe
     from groot_tpu_torch.parallel import device_index as pdi
 
-    idx = os.path.join(work, "idx")
+    idx = os.path.join(work, idx)
     info = Info.load(os.path.join(idx, "groot.gg"))
     index = lshe.ContainmentIndex.load(os.path.join(idx, "groot.lshe"))
     info.attach_db(index)
+    s_idx = index.sketch_size
     tables = WindowTables(index, info.store)
     batches = _plane_batches(fq)
     n_reads = sum(len(c) for c, _l in batches)
     launches, metrics, steps = {}, {}, {}
-    for t in (0.99, 0.97):
+    for t in thresholds:
         t0 = time.time()
         di = pdi.DeviceIndex.build(index, info.store, K, t, device=dev)
         _sync(dev)
         build_s = time.time() - t0
         step = steps[t] = pdi.make_sharded_align_step(di, t)
-        modes = {pdi.full_equality_mode(pdi.local_qmin(l, K), S,
+        modes = {pdi.full_equality_mode(pdi.local_qmin(l, K), s_idx,
                                         float(di.num_window_kmers), t)
                  for _c, l in batches}
         _build.reset_counts()
@@ -797,7 +1080,7 @@ def data_plane(work: str, fq: str, dev, base=None):
         _say(f"data plane t={t} launches:", json.dumps(counts))
         for n, c in counts.items():
             _check(c > 0, f"kernel {n} was not launched by the data-plane step")
-        if t == 0.99:
+        if t == thresholds[0]:
             launches.update({n: counts[n] for n in ("lsh_query", "weight_scatter")})
         nw = np.zeros(di.num_nodes)
         gk = np.zeros(di.num_graphs)
@@ -812,8 +1095,8 @@ def data_plane(work: str, fq: str, dev, base=None):
             rows, cols = np.nonzero(win >= 0)
             mine = set(zip(rows.tolist(), win[rows, cols].tolist()))
             host = _host_hits(index, codes, lens, t)
-            if t == 0.99:
-                _check(mine == host, "t=0.99: the step's hits != the host query's")
+            if modes == {True}:
+                _check(mine == host, f"t={t}: the step's hits != the host query's")
             cap_lost += len(host - mine)
             extra += len(mine - host)
             kc = (lens - K + 1).astype(np.float64)
@@ -823,8 +1106,8 @@ def data_plane(work: str, fq: str, dev, base=None):
         host_gk = np.zeros(di.num_graphs)  # graph_kt is over the indexed graphs
         host_gk[tables.graph_ids] = acc.graph_kt
         _check(np.array_equal(gk, host_gk), f"t={t}: graph k-mers != host replay")
-        what = "host query" if t == 0.99 else "host replay of its own hits"
-        _say(f"data plane t={t}: DeviceIndex built in {build_s:.2f}s "
+        what = "host query" if modes == {True} else "host replay of its own hits"
+        _say(f"data plane s={s_idx} t={t}: DeviceIndex built in {build_s:.2f}s "
              f"(band K={di.band_k}, L={di.sorted_sigs.shape[0]}, cf={di.cf}); "
              f"{len(batches)} batches, {n_reads} reads, modes "
              f"{sorted('full' if m else 'banded' for m in modes)}, C="
@@ -867,8 +1150,8 @@ def data_plane(work: str, fq: str, dev, base=None):
         search = n_band * max(n_sig, 2).bit_length()
         n_cand = _n_candidates(*qargs, **qkw)
         q_bound = _bound(_nbytes(qargs[0], qargs[1], win, con)
-                         + 4 * B * search + n_cand * (4 + 8 * S),
-                         B * (8 * S + search) + n_cand * S)
+                         + 4 * B * search + n_cand * (4 + 8 * s_idx),
+                         B * (8 * s_idx + search) + n_cand * s_idx)
         # weight_scatter: the hit table and k-mer counts in, each kept
         # pair's live node slots (id and coefficient; not the padding of
         # the Cn slots), flag and graph, the tallies out; ops: a
@@ -959,7 +1242,7 @@ def data_plane(work: str, fq: str, dev, base=None):
     from groot_tpu_torch.io import native
 
     codes, lens = batches[0]
-    q64 = native.sketch(codes, lens, K, S)
+    q64 = native.sketch(codes, lens, K, s_idx)
     kcn = (lens - K + 1).astype(np.int32)
     os.environ["GROOT_DEVICE_QUERY"] = "1"
     try:
@@ -1016,7 +1299,7 @@ KERNEL_FUNCS = {
     "lsh_query": ("lsh_query_kernel",),
     "weight_scatter": ("weight_count_kernel", "weight_pairs_kernel"),
     "pair_cascade": ("pair_cascade_kernel",),
-    "match_bits": ("match_bits_kernel",),
+    "match_bits": ("match_bits_kernel", "match_bits_global_kernel"),
 }
 
 
@@ -1116,6 +1399,38 @@ def _traced(fn):
     return dt, busy_us / 1e6, len(spans), _kernel_times(dev_events), counted, records
 
 
+def _trace_run(cmd: str, fn):
+    """`fn` under torch.profiler (_traced): prints the card's busy share of
+    its wall time and each kernel's traced launches beside its wrapper's
+    count, where a launch the trace lacks must be one of the kernel records
+    the profiler lost; returns ({kernel: (launches, device us)}, {kernel:
+    launches its wrapper counted}), both empty when the profiler records no
+    device activity."""
+    dt, busy, n_events, kern, counted, records = _traced(fn)
+    if not n_events:
+        _say(f"trace {cmd}: {dt:.2f}s; device busy share not measured "
+             "(no device events)")
+        return {}, {}
+    _say(f"trace {cmd}: {dt:.2f}s under the profiler; device busy "
+         f"{busy:.4f}s = {100 * busy / dt:.3f}% of the wall time over "
+         f"{n_events} device events")
+    # A launch the trace lacks must be one of the kernel records the
+    # profiler lost (its runtime launch call is in the trace, the
+    # kernel's record is not), never a launch the script miscounts.
+    short = {k: counted.get(k, 0) - kern.get(k, (0, 0.0))[0]
+             for k in sorted(set(kern) | set(counted))}
+    lost = records["launch_calls"] - records["kernel_records"]
+    _say(f"trace {cmd}: launches traced / counted by the wrappers: "
+         + json.dumps({k: [kern.get(k, (0, 0.0))[0], counted.get(k, 0)]
+                       for k in short})
+         + f"; launch calls {records['launch_calls']}, kernel records "
+         f"{records['kernel_records']}")
+    _check(min(short.values(), default=0) >= 0 and lost >= sum(short.values()),
+           f"trace {cmd}: the port's launches missing from the trace "
+           f"({short}) exceed the kernel records it lost ({lost})")
+    return kern, counted
+
+
 def traced_runs(work: str, fq: str, dev, plane_fn) -> dict:
     """index, align (device, cascade and host engines), haplotype and the
     data-plane step (plane_fn) on the card once more, each under
@@ -1133,28 +1448,7 @@ def traced_runs(work: str, fq: str, dev, plane_fn) -> dict:
     }
     per_kernel, ran = {}, {}
     for cmd, fn in runs.items():
-        dt, busy, n_events, kern, counted, records = _traced(fn)
-        if not n_events:
-            _say(f"trace {cmd}: {dt:.2f}s; device busy share not measured "
-                 "(no device events)")
-            continue
-        _say(f"trace {cmd}: {dt:.2f}s under the profiler; device busy "
-             f"{busy:.4f}s = {100 * busy / dt:.3f}% of the wall time over "
-             f"{n_events} device events")
-        # A launch the trace lacks must be one of the kernel records the
-        # profiler lost (its runtime launch call is in the trace, the
-        # kernel's record is not), never a launch the script miscounts.
-        short = {k: counted.get(k, 0) - kern.get(k, (0, 0.0))[0]
-                 for k in sorted(set(kern) | set(counted))}
-        lost = records["launch_calls"] - records["kernel_records"]
-        _say(f"trace {cmd}: launches traced / counted by the wrappers: "
-             + json.dumps({k: [kern.get(k, (0, 0.0))[0], counted.get(k, 0)]
-                           for k in short})
-             + f"; launch calls {records['launch_calls']}, kernel records "
-             f"{records['kernel_records']}")
-        _check(min(short.values(), default=0) >= 0 and lost >= sum(short.values()),
-               f"trace {cmd}: the port's launches missing from the trace "
-               f"({short}) exceed the kernel records it lost ({lost})")
+        kern, counted = _trace_run(cmd, fn)
         for k, (n, us) in kern.items():
             n0, us0 = per_kernel.get(k, (0, 0.0))
             per_kernel[k] = (n0 + n, us0 + us)
@@ -1181,11 +1475,58 @@ def _bam_keys(path):
     )
 
 
-def end_to_end(work: str, fq: str, dev) -> dict:
+@contextlib.contextmanager
+def _clocked(owner, names, on_call=None):
+    """Host clock spent in `owner`'s methods `names` while the block runs,
+    {name: seconds} summed over every call and thread; on_call(name, args)
+    after each call."""
+    import threading
+
+    spent = dict.fromkeys(names, 0.0)
+    raw = {n: owner.__dict__[n] for n in names}
+    lock = threading.Lock()
+
+    def clock(name):
+        orig = getattr(owner, name)  # a classmethod comes bound
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return (orig if isinstance(raw[name], classmethod) else raw[name])(*a, **kw)
+            finally:
+                with lock:
+                    spent[name] += time.perf_counter() - t0
+                if on_call is not None:
+                    on_call(name, a)
+        return run
+
+    for n in names:
+        setattr(owner, n, clock(n))
+    try:
+        yield spent
+    finally:
+        for n, fn in raw.items():
+            setattr(owner, n, fn)
+
+
+def _index_clock(work: str, fq: str, engine: str, device: str, idx: str):
+    """align_and_report with the host clock of its index load and its LSH
+    queries (summed over the prep threads) printed."""
+    from groot_tpu_torch.index.lshe import ContainmentIndex
+
+    with _clocked(ContainmentIndex, ("load", "query_batch_np")) as spent:
+        out = align_and_report(work, fq, engine, device, idx)
+    _say(f"{engine} run host clock: index load {spent['load']:.2f}s, LSH "
+         f"query {spent['query_batch_np']:.2f}s (summed over the prep threads) "
+         f"of {out[3]:.2f}s")
+    return out
+
+
+def end_to_end(work: str, fq: str, dev, idx: str = "idx") -> dict:
     from groot_tpu_torch import _build
 
     _build.reset_counts()
-    res, dev_bam, dev_rows, dev_s = align_and_report(work, fq, "device", dev.type)
+    res, dev_bam, dev_rows, dev_s = _index_clock(work, fq, "device", dev.type, idx)
     launches = _launches(["khf_sketch", "read_hash", "seed_scan"])
     st = res.stats
     _say(f"device run: {st.received} reads, {st.mapped} mapped, "
@@ -1194,7 +1535,7 @@ def end_to_end(work: str, fq: str, dev) -> dict:
     _say("device stage_times:", json.dumps(
         {k: round(v, 4) for k, v in sorted(st.stage_times.items())}))
 
-    host, host_bam, host_rows, host_s = align_and_report(work, fq, "hash", "cpu")
+    host, host_bam, host_rows, host_s = _index_clock(work, fq, "hash", "cpu", idx)
     _say(f"hash run: {host_s:.2f}s = {host.stats.received / host_s:.0f} reads/s")
     hash_run = (host, host_bam, host_rows)
     _same_as_hash("device", res, dev_bam, dev_rows, hash_run)
@@ -1219,14 +1560,14 @@ def _same_as_hash(engine: str, res, bam: str, rows: str, hash_run) -> None:
          f"{len(rows.splitlines())} report rows")
 
 
-def cascade_phase(work: str, fq: str, dev, hash_run) -> dict:
+def cascade_phase(work: str, fq: str, dev, hash_run, idx: str = "idx") -> dict:
     """`align --device cuda` on the cascade engine over the same reads and
     index: the pair-cascade kernel must launch, and the run must equal the
     hash run of phase 5."""
     from groot_tpu_torch import _build
 
     _build.reset_counts()
-    res, bam, rows, dt = align_and_report(work, fq, "cascade", dev.type)
+    res, bam, rows, dt = align_and_report(work, fq, "cascade", dev.type, idx)
     # the batch sketch and the cascade both launch on this path; the
     # summary line keeps the device run's sketch count
     launches = {"pair_cascade": _launches(["khf_sketch", "pair_cascade"])["pair_cascade"]}
@@ -1240,7 +1581,7 @@ def cascade_phase(work: str, fq: str, dev, hash_run) -> dict:
     return launches
 
 
-def host_phase(work: str, fq: str, dev, hash_run) -> dict:
+def host_phase(work: str, fq: str, dev, hash_run, idx: str = "idx") -> dict:
     """`align --device cuda` on the `host` engine (GROOT_ENGINE=host: one
     match-bits launch a read batch for every graph it touches) over the
     same reads and index: the kernel must launch, at most once a batch, and
@@ -1250,29 +1591,16 @@ def host_phase(work: str, fq: str, dev, hash_run) -> dict:
 
     # host clock in the aligner's two stages, summed over the run, and the
     # batches that reached the aligner
-    spent = {"align_graph_batches": 0.0, "_match_volumes": 0.0}
-    saved = {n: getattr(GraphAligner, n) for n in spent}
     batches = []
 
-    def timed(name):
-        def run(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return saved[name](*a, **kw)
-            finally:
-                spent[name] += time.perf_counter() - t0
-                if name == "align_graph_batches":
-                    batches.append(len(a[1]))
-        return run
+    def count(name, a):
+        if name == "align_graph_batches":
+            batches.append(len(a[1]))
 
     _build.reset_counts()
-    for n in spent:
-        setattr(GraphAligner, n, timed(n))
-    try:
-        res, bam, rows, dt = align_and_report(work, fq, "host", dev.type)
-    finally:
-        for n, fn in saved.items():
-            setattr(GraphAligner, n, fn)
+    with _clocked(GraphAligner, ("align_graph_batches", "_match_volumes"),
+                  count) as spent:
+        res, bam, rows, dt = align_and_report(work, fq, "host", dev.type, idx)
     launches = {"match_bits": _launches(["khf_sketch", "match_bits"])["match_bits"]}
     n_mapping = sum(n > 0 for n in batches)
     _check(launches["match_bits"] <= n_mapping,
@@ -1365,9 +1693,8 @@ def match_bits_parity(work: str, fq: str, dev, base=None) -> dict:
     timed: the launch, the plain version, and cuDNN's conv1d on the same
     one-hots (exact_conv, the library call) summed over the per-graph calls
     (the largest graph's printed beside it). With `base`, the earlier
-    kernel (one launch a graph, its C signature in `_Baseline._ARGTYPES`)
-    on each graph's inputs, its bits equal and its device time summed over
-    the batch."""
+    kernel (its C signature in `_Baseline._ARGTYPES`) on the same batch,
+    its bits equal."""
     from groot_tpu_torch import _build
     from groot_tpu_torch.align import aligner
     from groot_tpu_torch.config import Info
@@ -1389,8 +1716,8 @@ def match_bits_parity(work: str, fq: str, dev, base=None) -> dict:
     ga = aligner.GraphAligner(info.store, device=dev)
     args = ga.match_batch_inputs([(ga.pack(info.store[g]), rs) for g, rs in per_graph.items()])
     rows, row_off, row_len, codes, lens, pairs, segs = args
-    dev_args = [rows, row_off, row_len,
-                *(torch.from_numpy(a).to(dev) for a in (codes, lens, pairs))]
+    dev_args = [rows, row_off,
+                *(torch.from_numpy(a).to(dev) for a in (row_len, codes, lens, pairs))]
     _build.reset_counts()
     got, off = aligner.match_bits_batch(*args)
     _sync(dev)
@@ -1433,13 +1760,13 @@ def match_bits_parity(work: str, fq: str, dev, base=None) -> dict:
          "plain_device_ms": _all_device_ms(pfn, 2) if cuda else None,
          "library_device_ms": _all_device_ms(conv_all, 5) if cuda else None}
     if base is not None:
-        m.update(base.match_bits(calls, got, off, dev))
+        m.update(base.match_bits(args, got, off, dev))
     # bytes: each touched path row's real bases, each read's real bases,
     # the pair table and the output words; ops: one AND a (variant, row,
     # word, base) that the early exit leaves (this run's data; the count
     # without the exit and the conv's multiply-adds are printed beside it)
     touched = torch.cat([torch.arange(int(r0), int(r0 + n_r)) for _p, _n, r0, n_r, _w in segs])
-    n_path = int(row_len.cpu()[touched].long().sum())
+    n_path = int(row_len[touched.numpy()].astype(np.int64).sum())
     bound = _bound(n_path + int(lens.sum()) + 4 * len(pairs) + 4 * got.numel(), ands)
     n_var = sum(int(vl.clamp(min=0).sum()) * p.shape[0] * -(-(p.shape[1] - v.shape[1] + 1) // 32)
                 for p, v, vl in calls)
@@ -1461,8 +1788,8 @@ def match_bits_parity(work: str, fq: str, dev, base=None) -> dict:
          f"{ands} ops); without the early exit {full['bound_ms']:.6f} ms "
          f"({full['ops']} ANDs); the convs' {conv_b['ops']} flops "
          f"{conv_b['bound_ms']:.6f} ms"
-         + (f"; the earlier kernel, a launch a graph: {m['baseline_ms']:.4f} ms, "
-            f"device {m['baseline_device_ms']} ms summed over the batch, bits equal"
+         + (f"; the earlier kernel on the same batch: {m['baseline_ms']:.4f} ms, "
+            f"device {m['baseline_device_ms']} ms, bits equal"
             if base is not None else ""))
     return {**m, **bound}
 
@@ -1778,6 +2105,8 @@ def main(argv=None) -> int:
         kernels.update(plane_kernels)
         nproc_phase(work, fq)
         traced = traced_runs(work, fq, dev, plane_fn)
+        s128_launches, _s128_plane = s128_phase(work, fq, dev)
+        routes = routes_phase(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1798,6 +2127,8 @@ def main(argv=None) -> int:
             "timed_device_ms": m.get("timed_device_ms"),
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
+            # phase 11's launches at s = 128; phase 12's routes
+            "s128_launches": s128_launches.get(name), "routes": routes.get(name, []),
             **{k: m[k] for k in ("baseline_ms", "baseline_device_ms",
                                  "banded_timed_device_ms",
                                  "banded_baseline_device_ms",

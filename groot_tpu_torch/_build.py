@@ -227,6 +227,29 @@ def resolve_device(device):
     return dev
 
 
+def card_query(device, symbol: str, *args: int) -> int:
+    """A size the kernel library works out for the card `device`: its
+    `extern "C" long long symbol(long long...)` entry point, which returns
+    a CUDA error as a negative number (raised here)."""
+    import torch
+
+    fn = getattr(library(), symbol)
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong] * len(args)
+    with torch.cuda.device(device):
+        v = fn(*args)
+    if v < 0:
+        raise RuntimeError(f"{symbol} failed: "
+                           f"{library().groot_cuda_error_string(int(-v)).decode()}")
+    return v
+
+
+def smem_optin(device) -> int:
+    """The shared memory a block of a kernel may opt in to on `device`, in
+    bytes (232,448 on an H100)."""
+    return card_query(device, "groot_smem_optin")
+
+
 def reset_counts() -> None:
     for k in KERNELS.values():
         with k._count_lock:

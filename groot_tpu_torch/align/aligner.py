@@ -43,13 +43,14 @@ alignment.go:229).
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .._build import I, Kernel, P, ptr, resolve_device
+from .._build import I, I64, Kernel, P, card_query, ptr, resolve_device
 from ..graph.grootgraph import GrootGraph
 from ..graph.pack import pack_graph_paths
 from ..io.fastx import FastqRead
@@ -59,7 +60,8 @@ MAX_CLIP = 1  # alignment.go:16
 NODE_SHUFFLES = 10  # alignment.go:52
 
 MATCH_BITS = Kernel(
-    "match_bits", "groot_match_bits", (P, P, P, P, P, I, P, P, P, P, I, I, I, I, P),
+    "match_bits", "groot_match_bits",
+    (P, P, P, P, P, I, P, P, P, P, I, I, I, I, I, I64, P, P),
     source="groot_tpu_torch/csrc/match_bits.cu",
     replaces="groot_tpu/align/aligner.py:121",
 )
@@ -255,36 +257,77 @@ def match_bits_batch_torch(rows, row_off, row_len, reads, read_len, pairs,
     return torch.cat(out).view(torch.uint32)
 
 
-def work_table(segs: np.ndarray, nvar: int, Lr: int, items: int, max_words: int):
+def _seg_max(values: np.ndarray, start: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """The largest of values[start:start + count] for each segment (0 where
+    count is 0)."""
+    out = np.zeros(len(start), np.int64)
+    live = count > 0
+    if live.any():
+        c = count[live].astype(np.int64)
+        first = np.cumsum(c) - c
+        idx = np.repeat(start[live] - first, c) + np.arange(int(c.sum()))
+        out[live] = np.maximum.reduceat(np.asarray(values, np.int64)[idx], first)
+    return out
+
+
+def staged_bases(segs: np.ndarray, Lr: int, read_len: np.ndarray,
+                 pairs: np.ndarray, row_len: np.ndarray) -> np.ndarray:
+    """The bases of each read code row a kernel block stages, per segment
+    (int64 [S]): the batch's width Lr, cut to the segment's longest read
+    and its longest path row + 1, at least 1. Past a row's end every
+    position is a wildcard, so bases past a row's length + 1 (the + 1 for
+    clip-start, whose bases start at the read's second) can never fail to
+    match."""
+    pair0, n, row0, n_rows, _W = segs.T
+    longest_read = _seg_max(np.asarray(read_len)[np.asarray(pairs)], pair0, n)
+    longest_row = _seg_max(row_len, row0, n_rows)
+    return np.clip(np.minimum(longest_read, longest_row + 1), 1, Lr)
+
+
+def work_table(segs: np.ndarray, nvar: int, ls: np.ndarray, items: int,
+               max_words: int, limit: int):
     """The kernel's launch layout for segments `segs` (int64 [S, 5]: first
-    pair, pairs, first row, rows, W): one block a (segment, path row, group
+    pair, pairs, first row, rows, W) whose blocks stage `ls` bases of each
+    read code row (`staged_bases`): one block a (segment, path row, group
     of pairs, chunk of at most `max_words` output words), groups and chunks
     balanced and sized to about `items` (variant, word) items a block and
-    at most MAX_STAGED_BYTES of staged reads (or one pair).
-    Returns the segment table int32 [S, 8] (first pair, pairs, first row,
-    rows, W, W32, pairs a block, words a block), the work table int32
-    [blocks, 4] (segment, row within it, first pair, first word), the most
-    plane words a block reads (its words + ceil(Lr/32)) and the most pairs
-    a block stages."""
+    at most MAX_STAGED_BYTES of staged codes (or one pair). A block takes
+    5 x 4 bytes of planes a word of its chunk + ceil(ls/32) and its staged
+    codes; the segments whose blocks fit `limit` bytes of shared memory
+    take the shared route, the others the global route (a scratch slice a
+    block). Returns the segment table int32 [S, 9] (first pair, pairs,
+    first row, rows, W, W32, pairs a block, words a block, ls), the work
+    table int32 [blocks, 4] (segment, row within it, first pair, first
+    word: the shared route's blocks first), the shared route's block
+    count, the most bytes one of its blocks takes, and the global route's
+    slice bytes (the most one of its blocks takes, a multiple of 16; 0
+    when none)."""
     pair0, n, row0, n_rows, W = segs.T
+    ls = np.asarray(ls, np.int64)
     W32 = -(-W // 32)
     n_chunks = -(-W32 // max_words)
     WC = -(-W32 // np.maximum(n_chunks, 1))
+    nc = 2 if nvar == 6 else 1
     PG = np.maximum(np.minimum(items // (nvar * np.maximum(WC, 1)),
-                               MAX_STAGED_BYTES // ((2 if nvar == 6 else 1) * Lr)), 1)
+                               MAX_STAGED_BYTES // (nc * ls)), 1)
     n_groups = -(-n // PG)
     PG = -(-n // np.maximum(n_groups, 1))
+    nbytes = 4 * 5 * (WC + -(-ls // 32)) + PG * nc * ls
     per = n_rows * n_groups * n_chunks
-    seg = np.repeat(np.arange(len(segs)), per)
-    local = np.arange(len(seg)) - np.repeat(np.cumsum(per) - per, per)
+    live = per > 0
+    shared = nbytes <= limit
+    order = np.concatenate([np.flatnonzero(shared), np.flatnonzero(~shared)])
+    seg = np.repeat(order, per[order])
+    local = np.arange(len(seg)) - np.repeat(np.cumsum(per[order]) - per[order], per[order])
     chunk = local % n_chunks[seg]
     t = local // n_chunks[seg]
     work = np.stack([seg, t // n_groups[seg], t % n_groups[seg] * PG[seg],
                      chunk * WC[seg]], 1).astype(np.int32)
-    seg_tab = np.stack([pair0, n, row0, n_rows, W, W32, PG, WC], 1).astype(np.int32)
-    live = per > 0
-    nws = int(WC[live].max()) + -(-Lr // 32) if live.any() else 1
-    return seg_tab, work, nws, int(PG[live].max()) if live.any() else 1
+    seg_tab = np.stack([pair0, n, row0, n_rows, W, W32, PG, WC, ls], 1).astype(np.int32)
+    n_shared = int(per[shared].sum())
+    smem = int(nbytes[shared & live].max(initial=0))
+    slice_bytes = -(-int(nbytes[~shared & live].max(initial=0)) // 16) * 16
+    return seg_tab, work, n_shared, smem, slice_bytes
 
 
 def _on_device(dev: torch.device, arrays):
@@ -309,7 +352,7 @@ def _on_device(dev: torch.device, arrays):
 
 
 def match_bits_batch(rows, row_off, row_len, reads, read_len, pairs, segs,
-                     nvar: int = 6):
+                     nvar: int = 6, shared_limit: Optional[int] = None):
     """Packed match volumes of many graphs at once. The path rows: u8 codes
     `rows` (flat; its device is the call's), row r at row_off[r] (int64)
     with row_len[r] bases (int32), a position at or past its end a
@@ -324,7 +367,9 @@ def match_bits_batch(rows, row_off, row_len, reads, read_len, pairs, segs,
     bit b of word w the match at offset 32w + b, none at offsets >= W) on
     the device and out_off int64 [S + 1] on the host. A CPU `rows` takes
     the plain version; a CUDA one launches the match-bits kernel once, or
-    raises."""
+    raises. A segment whose blocks take more than `shared_limit` bytes of
+    shared memory (default: what the card lets the kernel's blocks take)
+    goes to the kernel's global route."""
     dev = rows.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
@@ -346,8 +391,11 @@ def match_bits_batch(rows, row_off, row_len, reads, read_len, pairs, segs,
         return match_bits_batch_torch(
             rows, *_on_device(dev, [row_off, row_len, reads, read_len, pairs]),
             segs, nvar), out_off
-    seg_tab, work, nws, pg_max = work_table(segs, nvar, Lr, ITEMS_PER_BLOCK,
-                                            MAX_BLOCK_WORDS)
+    ls = staged_bases(segs, Lr, *(_host(a) for a in (read_len, pairs, row_len)))
+    limit, max_slices = match_limits(str(dev))
+    seg_tab, work, n_shared, smem, slice_bytes = work_table(
+        segs, nvar, ls, ITEMS_PER_BLOCK, MAX_BLOCK_WORDS,
+        limit if shared_limit is None else min(shared_limit, limit))
     args = _on_device(dev, [row_off, row_len, reads, read_len, pairs, seg_tab,
                             out_off[:-1], work])
     for a, dt in zip(args, (torch.int64, torch.int32, torch.uint8, torch.int32,
@@ -355,11 +403,29 @@ def match_bits_batch(rows, row_off, row_len, reads, read_len, pairs, segs,
         if a.device != dev or a.dtype != dt or not a.is_contiguous():
             raise TypeError(f"want a contiguous {dt} on {dev}, got {a.dtype} on {a.device}")
     out = torch.empty(int(out_off[-1]), dtype=torch.int32, device=dev)
+    n_global = len(work) - n_shared
+    slices = min(n_global, max_slices)
+    scratch = torch.empty(slices * slice_bytes, dtype=torch.uint8, device=dev)
     if len(work):
         MATCH_BITS.launch(dev, ptr(rows), *(ptr(a) for a in args[:4]), Lr,
-                          *(ptr(a) for a in args[4:]), len(work), nvar, nws,
-                          pg_max, ptr(out))
+                          *(ptr(a) for a in args[4:]), n_shared, n_global, nvar,
+                          smem, slices, slice_bytes, ptr(scratch) if slices else None,
+                          ptr(out))
     return out.view(torch.uint32), out_off
+
+
+@functools.lru_cache(maxsize=None)
+def match_limits(device: str) -> Tuple[int, int]:
+    """(the shared memory a block of the kernel's shared route may take,
+    the global route's blocks) on `device`, as csrc/match_bits.cu works
+    them out."""
+    return (card_query(device, "groot_match_bits_smem_limit"),
+            card_query(device, "groot_match_bits_global_blocks"))
+
+
+def _host(a) -> np.ndarray:
+    """A numpy array, or a tensor's values copied to the host."""
+    return a if isinstance(a, np.ndarray) else a.cpu().numpy()
 
 
 class GraphAligner:
@@ -384,10 +450,12 @@ class GraphAligner:
         return gp
 
     def path_rows(self):
-        """(rows, row_off, row_len) of every graph of the store on the
-        aligner's device, made and copied once, on first use: each path
-        row's real bases, one after another (`match_bits_batch`'s path
-        rows); `_row_index[graph_id]` = (first row, rows, width L)."""
+        """(rows, row_off, row_len) of every graph of the store, made once,
+        on first use: each path row's real bases, one after another
+        (`match_bits_batch`'s path rows), the codes and offsets copied to
+        the aligner's device once, the lengths kept on the host (the
+        wrapper sizes its blocks by them and uploads them with each batch's
+        layout); `_row_index[graph_id]` = (first row, rows, width L)."""
         if self._rows is None:
             codes, lens = [], []
             for gid in sorted(self.store):
@@ -400,7 +468,7 @@ class GraphAligner:
             lens = np.concatenate(lens or [np.zeros(0, np.int32)]).astype(np.int32)
             row_off = (np.cumsum(lens) - lens).astype(np.int64)
             flat = np.concatenate(codes or [np.zeros(0, np.uint8)])
-            self._rows = _on_device(self.device, [flat, row_off, lens])
+            self._rows = (*_on_device(self.device, [flat, row_off]), lens)
         return self._rows
 
     # ------------------------------------------------------------------

@@ -45,6 +45,13 @@
 //   paths over all threads sum each path's quotients, and __syncthreads_or
 //   both gives `changed` and ends the round: two barriers a round. The final
 //   round's zeroing is applied where the next round reads the alphas.
+// - Large graphs: a mask-route graph whose live ecs' masks and counts do
+//   not fit the block's shared memory beside the warp sums reads them from
+//   the layout in device memory (they are read-only); a CSR-route graph
+//   whose counts, quotients and alphas do not fit reads its counts from
+//   the layout and keeps its quotients and alphas in its own slice of a
+//   scratch the wrapper allocates (float32 [G][E + 2 P]). The rounds are
+//   the same; their loads go through L1 and L2.
 // The path sums add float32 quotients in float64 and round once: a float32
 // sum over hundreds of ecs in another order than the reference's drifts
 // past 1e-5 over hundreds of rounds (seen in a CPU emulation of this
@@ -62,6 +69,7 @@ constexpr float kChangeLimit = 1e-2f;                   // ALPHA_CHANGE_LIMIT
 constexpr float kChange = 1e-2f;                        // ALPHA_CHANGE
 constexpr float kTiny = 1e-30f;
 constexpr int kEcsPerThread = 1;  // live ecs a mask-route thread aims at
+constexpr int kWpartWords = 4 * 32 * 32;  // the mask route's warp sums
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Layout {
@@ -245,11 +253,18 @@ __device__ __forceinline__ long long csr_words(long long n_live, long long width
   return w;
 }
 
-template <int NP>
+// kLarge: a batch whose graphs may not fit smem_words (E ecs' masks and
+// counts, 2 E words, and the warp sums do not; or a CSR graph needs the
+// scratch): each block then stages its graph only when it fits, and reads
+// the layout in device memory, or keeps its CSR quotients and alphas in
+// the scratch, when it does not (a template, so that batches that fit
+// keep the code, and the registers, of a kernel that always stages).
+template <int NP, bool kLarge>
 __global__ void em_batched_kernel(Layout L, int E, int P, int min_it,
                                   int max_it, long long smem_words,
                                   int32_t* __restrict__ it_out,
-                                  float* __restrict__ alpha_out) {
+                                  float* __restrict__ alpha_out,
+                                  float* __restrict__ scratch) {
   extern __shared__ float sm[];
   const int g = blockIdx.x;
   const size_t row = static_cast<size_t>(g) * E;
@@ -260,12 +275,17 @@ __global__ void em_batched_kernel(Layout L, int E, int P, int min_it,
   for (int p = threadIdx.x; p < P; p += blockDim.x) a_out[p] = 0.0f;
 
   if (width <= 32) {
+    const bool staged = !kLarge || 2LL * n_live + kWpartWords <= smem_words;
+    const int span = kLarge ? n_live : E;  // the staged arrays' length
     uint32_t* smask = reinterpret_cast<uint32_t*>(sm);
-    float* scnt = sm + E;
-    double* wpart = reinterpret_cast<double*>(sm + 2 * E);  // [2][32][32]
-    for (int e = threadIdx.x; e < n_live; e += blockDim.x) {
-      smask[e] = static_cast<uint32_t>(L.mask[row + e]);
-      scnt[e] = L.cnt[row + e];
+    float* scnt = sm + span;
+    // [2][32][32] warp sums, after the staged masks and counts
+    double* wpart = reinterpret_cast<double*>(sm + (staged ? 2 * span : 0));
+    if (staged) {
+      for (int e = threadIdx.x; e < n_live; e += blockDim.x) {
+        smask[e] = static_cast<uint32_t>(L.mask[row + e]);
+        scnt[e] = L.cnt[row + e];
+      }
     }
     __syncthreads();
     int n_warps = (n_live + 32 * kEcsPerThread - 1) / (32 * kEcsPerThread);
@@ -274,8 +294,12 @@ __global__ void em_batched_kernel(Layout L, int E, int P, int min_it,
                   ? static_cast<int>(blockDim.x >> 5) : n_warps;
     if (static_cast<int>(threadIdx.x >> 5) >= n_warps) return;
     __syncwarp();
-    em_masks<NP>(smask, scnt, n_live, n, n_warps, wpart, min_it, max_it, P,
-                 it_out + g, a_out);
+    if (staged)
+      em_masks<NP>(smask, scnt, n_live, n, n_warps, wpart, min_it, max_it, P,
+                   it_out + g, a_out);
+    else  // the layout's masks and counts, read from device memory
+      em_masks<NP>(reinterpret_cast<const uint32_t*>(L.mask + row), L.cnt + row,
+                   n_live, n, n_warps, wpart, min_it, max_it, P, it_out + g, a_out);
     return;
   }
 
@@ -285,6 +309,15 @@ __global__ void em_batched_kernel(Layout L, int E, int P, int min_it,
   const int32_t* pp = L.path_ptr + static_cast<size_t>(g) * (P + 1);
   const int32_t* pes = L.path_ecs + L.path_base[g];
   const int nnz = ep[n_live];
+  if constexpr (kLarge) {
+    if (csr_words(n_live, width, nnz, false) > smem_words) {
+      // counts from the layout, quotients and alphas in the graph's scratch
+      float* cn = scratch + static_cast<size_t>(g) * (E + 2 * P);
+      em_csr(ep, eps, pp, pes, L.cnt + row, n_live, n, width, cn + E, cn, min_it,
+             max_it, it_out + g, a_out);
+      return;
+    }
+  }
   float* scnt = sm;
   float* cn = scnt + n_live;
   float* abuf = cn + n_live;
@@ -332,18 +365,57 @@ int block_threads(Kern kern, int want, size_t smem, int G) {
   return t;
 }
 
+// The shared memory a block, in 4-byte words, for a batch of E ecs whose
+// widest CSR-route graph's counts, quotients and alphas take `least` words
+// (2 n_live + 2 width) and whose largest CSR graph that fits staged whole
+// takes `fits`: the most of those and the mask route's masks, counts and
+// warp sums (2 E + kWpartWords), at most the card's opt-in limit.
+cudaError_t plan_words(long long E, long long least, long long fits, long long* words) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  long long w = 2 * E + kWpartWords;
+  w = w < least ? least : w;
+  w = w < fits ? fits : w;
+  *words = w < optin / 4 ? w : optin / 4;
+  return err;
+}
+
 }  // namespace
 
+// groot_em_batched's smem_words for a batch (plan_words), -error on a CUDA
+// error.
+extern "C" long long groot_em_smem_words(long long E, long long least, long long fits) {
+  long long w = 0;
+  const cudaError_t err = plan_words(E, least, fits, &w);
+  return err == cudaSuccess ? w : -static_cast<long long>(err);
+}
+
+// The bytes of groot_em_batched's scratch for a batch of G graphs of E ecs
+// and P path lanes: float32 [G, E + 2 P] when the widest CSR-route graph's
+// `least` words pass smem_words (its graphs that do not fit keep their
+// quotients and alphas there), else 0; -error on a CUDA error.
+extern "C" long long groot_em_scratch_bytes(long long G, long long E, long long P,
+                                            long long least, long long fits) {
+  long long w = 0;
+  const cudaError_t err = plan_words(E, least, fits, &w);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  return least > w ? 4 * G * (E + 2 * P) : 0;
+}
+
+// smem_words and scratch from groot_em_smem_words and
+// groot_em_scratch_bytes (null when that is 0).
 extern "C" int groot_em_batched(
     const void* mask, const void* cnt, const void* n_live, const void* width,
     const void* n_paths, const void* ec_ptr, const void* ec_base,
     const void* ec_paths, const void* path_ptr, const void* path_base,
     const void* path_ecs, int G, int E, int P, int NP, int threads,
     long long smem_words, int min_it, int max_it, void* it_out,
-    void* alpha_out, void* stream) {
+    void* alpha_out, void* scratch, void* stream) {
   if (G == 0) return 0;
   if (G < 0 || E < 0 || P < 1 || threads < 32 || threads > 1024 ||
-      threads % 32 || smem_words < 2LL * E + 4 * 32 * 32)
+      threads % 32 || smem_words < kWpartWords)
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout L{static_cast<const int32_t*>(mask),
                  static_cast<const float*>(cnt),
@@ -360,17 +432,22 @@ extern "C" int groot_em_batched(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int32_t* it = static_cast<int32_t*>(it_out);
   float* al = static_cast<float*>(alpha_out);
-#define GROOT_EM_LAUNCH(NPV)                                                  \
-  do {                                                                        \
-    const int t = block_threads(em_batched_kernel<NPV>, threads, smem, G);    \
-    if (t < 0) return -t;                                                     \
-    em_batched_kernel<NPV><<<G, t, smem, st>>>(L, E, P, min_it, max_it,       \
-                                               smem_words, it, al);           \
+  float* sc = static_cast<float*>(scratch);
+  const bool large = 2LL * E + kWpartWords > smem_words || scratch != nullptr;
+#define GROOT_EM_LAUNCH(NPV, LARGE)                                             \
+  do {                                                                          \
+    const int t = block_threads(em_batched_kernel<NPV, LARGE>, threads, smem, G); \
+    if (t < 0) return -t;                                                       \
+    em_batched_kernel<NPV, LARGE><<<G, t, smem, st>>>(L, E, P, min_it, max_it,  \
+                                                      smem_words, it, al, sc);  \
   } while (0)
-  switch (NP) {
-    case 8: GROOT_EM_LAUNCH(8); break;
-    case 16: GROOT_EM_LAUNCH(16); break;
-    case 32: GROOT_EM_LAUNCH(32); break;
+  switch (NP * 2 + large) {
+    case 16: GROOT_EM_LAUNCH(8, false); break;
+    case 17: GROOT_EM_LAUNCH(8, true); break;
+    case 32: GROOT_EM_LAUNCH(16, false); break;
+    case 33: GROOT_EM_LAUNCH(16, true); break;
+    case 64: GROOT_EM_LAUNCH(32, false); break;
+    case 65: GROOT_EM_LAUNCH(32, true); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GROOT_EM_LAUNCH

@@ -34,6 +34,12 @@
 // slot minima meet in shared memory. k-mers starting at or past
 // valid_len-k+1 are left out, which equals masking them to all-ones; a
 // read with no valid k-mer sketches to all-ones in every slot.
+// Sketches of more than kMaxSlots slots split the slots into G =
+// ceil(s / 64) groups of at most 64 (gridDim.y = G, the group's slots
+// rounded up to a multiple of 4, at least 36, a template of its own): each
+// group's blocks rescan their reads, an O(L) scan against the (L-k+1)*64
+// multiply-xorshifts of the group, and keep that group's minima in
+// registers as above; the groups write disjoint slots of the same rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,15 +104,19 @@ __device__ __forceinline__ void store_slot_minima(u64 (&v)[N], int lane,
 template <int S4>
 constexpr int kSlotRegs = S4 <= 8 ? 8 : S4 <= 16 ? 16 : S4 <= 32 ? 32 : 64;
 
-template <int S4, bool kSplit>
+// s: the slots a block computes (its group's); s_row: the slots of an
+// output row; kGrouped: slot group blockIdx.y starts at slot blockIdx.y * s
+template <int S4, bool kSplit, bool kGrouped>
 __global__ void __launch_bounds__(kSplitWarps * 32)
     khf_sketch_kernel(const uint8_t* __restrict__ codes,
                       const int32_t* __restrict__ valid_len,
                       u64* __restrict__ out, int B, int L, int k, int s,
-                      int ring) {
+                      int s_row, int ring) {
   // per warp an X ring and a Y ring; split: then the warps' slot minima
   // [warps][s] and their segment sums of X and Y [warps] each
   extern __shared__ u64 smem[];
+  const int m0 = kGrouped ? static_cast<int>(blockIdx.y) * s : 0;  // first slot
+  const int s_out = kGrouped ? imin(s, s_row - m0) : s;  // slots stored
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -200,10 +210,16 @@ __global__ void __launch_bounds__(kSplitWarps * 32)
         const u64 f = rotl64(x ^ rx[i & mask], j);
         const u64 r = rotr64(y ^ ry[i & mask], i);
         const u64 h = umin64(f, r);
-        mins[0] = umin64(mins[0], h);
+        if (kGrouped && m0 > 0) {  // slot m0 is a multihash slot too
+          u64 g = h * (static_cast<u64>(m0) ^ kseed);
+          g ^= g >> kMultiShift;
+          mins[0] = umin64(mins[0], g);
+        } else {
+          mins[0] = umin64(mins[0], h);
+        }
 #pragma unroll
         for (int m = 1; m < S4; ++m) {  // slot_hash; slots >= s never stored
-          u64 g = h * (static_cast<u64>(m) ^ kseed);
+          u64 g = h * (static_cast<u64>(m0 + m) ^ kseed);
           g ^= g >> kMultiShift;
           mins[m] = umin64(mins[m], g);
         }
@@ -211,25 +227,28 @@ __global__ void __launch_bounds__(kSplitWarps * 32)
       __syncwarp();  // the next chunk overwrites ring entries read here
     }
   }
-  u64* dst = out + static_cast<size_t>(b) * s;
+  u64* dst = out + static_cast<size_t>(b) * s_row + m0;
   if (!kSplit) {
-    store_slot_minima<N>(mins, lane, s, dst);
+    store_slot_minima<N>(mins, lane, s_out, dst);
     return;
   }
   store_slot_minima<N>(mins, lane, s, part + warp * s);
   __syncthreads();
-  for (int m = threadIdx.x; m < s; m += blockDim.x) {
+  for (int m = threadIdx.x; m < s_out; m += blockDim.x) {
     u64 v = part[m];
     for (int w = 1; w < warps; ++w) v = umin64(v, part[w * s + m]);
     dst[m] = v;
   }
 }
 
-template <int S4>
+// s: the slots a block computes (a group's when kGrouped, G groups);
+// s_row: the slots of an output row
+template <int S4, bool kGrouped>
 cudaError_t launch(const uint8_t* codes, const int32_t* valid_len, u64* out,
-                   int B, int L, int k, int s, cudaStream_t st) {
+                   int B, int L, int k, int s, int s_row, int G, cudaStream_t st) {
   if constexpr (S4 < kMaxSlots) {
-    if (s > S4) return launch<S4 + 4>(codes, valid_len, out, B, L, k, s, st);
+    if (s > S4)
+      return launch<S4 + 4, kGrouped>(codes, valid_len, out, B, L, k, s, s_row, G, st);
   }
   int ring = 64;
   while (ring < k + 32) ring <<= 1;
@@ -237,16 +256,18 @@ cudaError_t launch(const uint8_t* codes, const int32_t* valid_len, u64* out,
   const int split_bytes = ring_bytes + (s + 2) * static_cast<int>(sizeof(u64));
   const int split = imin(kSplitWarps, kSmemBudget / split_bytes);
   if (L >= kSplitL && split >= 2) {
-    khf_sketch_kernel<S4, true><<<B, split * 32, split * split_bytes, st>>>(
-        codes, valid_len, out, B, L, k, s, ring);
+    khf_sketch_kernel<S4, true, kGrouped>
+        <<<dim3(B, G), split * 32, split * split_bytes, st>>>(
+            codes, valid_len, out, B, L, k, s, s_row, ring);
   } else {
     // reads a block: fewer when the batch is too small to give every SM a
     // block, and no more rings than fit the shared budget
     int warps = imin(kReadsPerBlock, (B + kSpread - 1) / kSpread);
     warps = imin(warps, kSmemBudget / ring_bytes);
     const int blocks = (B + warps - 1) / warps;
-    khf_sketch_kernel<S4, false><<<blocks, warps * 32, warps * ring_bytes, st>>>(
-        codes, valid_len, out, B, L, k, s, ring);
+    khf_sketch_kernel<S4, false, kGrouped>
+        <<<dim3(blocks, G), warps * 32, warps * ring_bytes, st>>>(
+            codes, valid_len, out, B, L, k, s, s_row, ring);
   }
   return cudaGetLastError();
 }
@@ -257,9 +278,18 @@ extern "C" int groot_khf_sketch(const void* codes, const void* valid_len,
                                 void* out, int B, int L, int k, int s,
                                 void* stream) {
   if (B == 0) return 0;
-  if (L < 1 || k < 1 || k > kMaxK || s < 1 || s > kMaxSlots)
+  if (L < 1 || k < 1 || k > kMaxK || s < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<4>(
-      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(valid_len),
-      static_cast<u64*>(out), B, L, k, s, static_cast<cudaStream_t>(stream)));
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  const int32_t* v = static_cast<const int32_t*>(valid_len);
+  u64* o = static_cast<u64*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s <= kMaxSlots)
+    return static_cast<int>(launch<4, false>(c, v, o, B, L, k, s, s, 1, st));
+  // groups of gs = ceil(s / G) slots, 32 < gs <= 64, so the first
+  // template is 36
+  const int G = (s + kMaxSlots - 1) / kMaxSlots;
+  if (G > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int gs = (s + G - 1) / G;
+  return static_cast<int>(launch<36, true>(c, v, o, B, L, k, gs, s, G, st));
 }

@@ -40,6 +40,13 @@
 // lanes sized to C (8 lanes a candidate at C = 3), their slot matches summed
 // by shuffles; window 0's matches, which every empty or duplicate slot
 // scores, are counted once a read.
+// Where a block's four reads' sketches (8 s bytes each) and sort buffers
+// (8 Cp bytes each) do not fit the card's shared memory (C past about
+// 6,000, or a very large s), the global route takes the same steps with
+// each read's ids and sort buffer in its own slice of a scratch the
+// wrapper allocates (int32 [B, 2 Cp], groot_lsh_query_scratch_bytes) and
+// its sketch read from q; the
+// sort's strides below 32 stay in registers, the wider ones go through L1.
 // What bounds it on the card: the latency of the dependent loads (the
 // search levels, then the ids, then the sketch rows); the signature row
 // (1.6 MB) stays in L2.
@@ -51,8 +58,7 @@ namespace {
 typedef unsigned long long u64;
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxS = 64;
-constexpr int kMaxC = 4096;
+constexpr int kNarrowS = 64;  // slots a warp's staged sketch takes when s <= 64
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kIlp = 4;  // entries a lane carries through a sort stage at once
@@ -112,29 +118,39 @@ __device__ void warp_bitonic_sort(int32_t* buf, int Cp, int lane) {
   }
 }
 
+// kGlobal: the read's sort buffer in scratch (int32 [B][2 Cp]) and its
+// sketch read from q; else both in shared memory ([warps][qst] u64, then
+// [warps][2 Cp] int32). kWide: s > 64, the staged sketch takes qst = s
+// slots (else kNarrowS) and window 0's slots past 64 are compared too.
+template <bool kGlobal, bool kWide>
 __global__ void lsh_query_kernel(
     const u64* __restrict__ q, const int32_t* __restrict__ kc,
     const u64* __restrict__ sketches, const uint32_t* __restrict__ sigs,
     const int32_t* __restrict__ idx, int B, int s, int N, int L, int K, int M,
     int Cp, int qmax, float d, float t, int full,
-    int32_t* __restrict__ win_out, float* __restrict__ contain_out) {
+    int32_t* __restrict__ win_out, float* __restrict__ contain_out,
+    int32_t* __restrict__ scratch) {
   extern __shared__ unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  u64* qs_all = reinterpret_cast<u64*>(smem);
-  int32_t* buf_all = reinterpret_cast<int32_t*>(qs_all + kWarpsPerBlock * kMaxS);
-  u64* qv = qs_all + warp * kMaxS;
-  int32_t* buf = buf_all + static_cast<size_t>(warp) * 2 * Cp;
-  int32_t* real_ids = buf + Cp;
+  const int qst = kWide ? s : kNarrowS;
+  u64* qs = reinterpret_cast<u64*>(smem) + static_cast<size_t>(warp) * qst;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
+  int32_t* buf = kGlobal ? scratch + static_cast<size_t>(b) * 2 * Cp
+                         : reinterpret_cast<int32_t*>(reinterpret_cast<u64*>(smem) +
+                                                      kWarpsPerBlock * qst) +
+                               static_cast<size_t>(warp) * 2 * Cp;
+  int32_t* real_ids = buf + Cp;
   if (b >= B) return;  // the whole warp: every shuffle below has 32 lanes
   const int C = L * M;
 
   const int kcb = kc[b];  // loaded beside the sketch, used at the end
-  // window 0's sketch, which every empty or duplicate slot scores: loaded
-  // now, compared at the end
+  // window 0's first 64 slots, which every empty or duplicate slot scores:
+  // loaded now, compared at the end (with any slots past them)
   const u64 w0a = lane < s ? sketches[lane] : 0;
   const u64 w0b = lane + 32 < s ? sketches[lane + 32] : 0;
-  for (int i = lane; i < s; i += 32) qv[i] = q[static_cast<size_t>(b) * s + i];
+  const u64* qv = kGlobal ? q + static_cast<size_t>(b) * s : qs;
+  if (!kGlobal)
+    for (int i = lane; i < s; i += 32) qs[i] = q[static_cast<size_t>(b) * s + i];
   __syncwarp();
 
   // 1-2: band signatures, (g+1)-ary lower bounds, gathered ids; g = 2^lg
@@ -214,8 +230,14 @@ __global__ void lsh_query_kernel(
   // 4-5: dedup, containment, keep; gc lanes a candidate. An empty or
   // duplicate slot scores window 0 (the reference's clipped gather), the
   // same for every such slot of the read: its matches are counted once
-  const int eq0 = __popc(__ballot_sync(kFull, lane < s && w0a == qv[lane])) +
-                  __popc(__ballot_sync(kFull, lane + 32 < s && w0b == qv[lane + 32]));
+  int eq0 = __popc(__ballot_sync(kFull, lane < s && w0a == qv[lane])) +
+            __popc(__ballot_sync(kFull, lane + 32 < s && w0b == qv[lane + 32]));
+  if constexpr (kWide) {
+    for (int x0 = 64; x0 < s; x0 += 32) {
+      const int x = x0 + lane;
+      eq0 += __popc(__ballot_sync(kFull, x < s && sketches[x] == qv[x]));
+    }
+  }
   int gc = 1;
   while (gc < 32 && 2 * gc * C <= 32) gc <<= 1;
   const float qsf = __int2float_rn(kcb);
@@ -249,31 +271,83 @@ __global__ void lsh_query_kernel(
   }
 }
 
+// The candidate slots of a read's sort buffer: C rounded up to a power of
+// two, at least 32.
+int padded_candidates(long long C) {
+  int Cp = 32;
+  while (Cp < C) Cp <<= 1;
+  return Cp;
+}
+
+// The shared route's dynamic shared memory a block: four reads' staged
+// sketches (8 max(s, 64) bytes each) and sort buffers (8 Cp bytes each).
+size_t shared_bytes(int s, int Cp) {
+  const size_t qst = s > kNarrowS ? s : kNarrowS;
+  return kWarpsPerBlock * (qst * sizeof(u64) + 2 * static_cast<size_t>(Cp) * sizeof(int32_t));
+}
+
 }  // namespace
 
+// The bytes of scratch groot_lsh_query needs for B reads of s slots and
+// C = L M candidate slots on the current device: 0 where the shared
+// route's bytes fit a block's opt-in shared memory, else those of the
+// global route's int32 [B, 2 Cp]; -error on a CUDA error.
+extern "C" long long groot_lsh_query_scratch_bytes(long long B, long long s,
+                                                    long long L, long long M) {
+  const long long C = L * M;
+  if (B < 1 || s < 1 || s > INT32_MAX || L < 1 || M < 1 || C > (1 << 29)) return 0;
+  const int Cp = padded_candidates(C);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  if (shared_bytes(static_cast<int>(s), Cp) <= static_cast<size_t>(optin)) return 0;
+  return B * 2 * Cp * static_cast<long long>(sizeof(int32_t));
+}
+
+// scratch: null for the shared route, or int32 [B, 2 Cp] for the global
+// route, sized by groot_lsh_query_scratch_bytes.
 extern "C" int groot_lsh_query(
     const void* q, const void* kc, const void* sketches, const void* sigs,
     const void* idx, int B, int s, int N, int L, int K, int M, int qmax,
     float d, float t, int full, void* win_out, void* contain_out,
-    void* stream) {
-  const int C = L * M;
-  if (B < 1 || s < 1 || s > kMaxS || N < 1 || L < 1 || K < 1 || L * K > s ||
-      M < 1 || C > kMaxC || (full && L != 1))
+    void* scratch, void* stream) {
+  const long long C = static_cast<long long>(L) * M;
+  if (B < 1 || s < 1 || N < 1 || L < 1 || K < 1 || static_cast<long long>(L) * K > s ||
+      M < 1 || C > (1 << 29) || (full && L != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  int Cp = 32;
-  while (Cp < C) Cp <<= 1;
-  const size_t smem = kWarpsPerBlock * (kMaxS * sizeof(u64) +
-                                        2 * static_cast<size_t>(Cp) * sizeof(int32_t));
-  cudaError_t err = cudaFuncSetAttribute(
-      lsh_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int Cp = padded_candidates(C);
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  lsh_query_kernel<<<blocks, kWarpsPerBlock * 32, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u64*>(q), static_cast<const int32_t*>(kc),
-      static_cast<const u64*>(sketches), static_cast<const uint32_t*>(sigs),
-      static_cast<const int32_t*>(idx), B, s, N, L, K, M, Cp, qmax, d, t, full,
-      static_cast<int32_t*>(win_out), static_cast<float*>(contain_out));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const u64* qp = static_cast<const u64*>(q);
+  const int32_t* kp = static_cast<const int32_t*>(kc);
+  const u64* skp = static_cast<const u64*>(sketches);
+  const uint32_t* sgp = static_cast<const uint32_t*>(sigs);
+  const int32_t* ip = static_cast<const int32_t*>(idx);
+  int32_t* wo = static_cast<int32_t*>(win_out);
+  float* co = static_cast<float*>(contain_out);
+  int32_t* sc = static_cast<int32_t*>(scratch);
+  const bool wide = s > kNarrowS;
+  const size_t smem = scratch ? 0 : shared_bytes(s, Cp);
+  if (smem > static_cast<size_t>(INT32_MAX)) return static_cast<int>(cudaErrorInvalidValue);
+#define GROOT_LSH_LAUNCH(GLOBAL, WIDE)                                               \
+  do {                                                                               \
+    if (!GLOBAL) {                                                                   \
+      const cudaError_t err = cudaFuncSetAttribute(                                  \
+          lsh_query_kernel<GLOBAL, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+          static_cast<int>(smem));                                                   \
+      if (err != cudaSuccess) return static_cast<int>(err);                          \
+    }                                                                                \
+    lsh_query_kernel<GLOBAL, WIDE><<<blocks, kWarpsPerBlock * 32, smem, st>>>(        \
+        qp, kp, skp, sgp, ip, B, s, N, L, K, M, Cp, qmax, d, t, full, wo, co, sc);   \
+  } while (0)
+  switch (2 * (scratch != nullptr) + wide) {
+    case 0: GROOT_LSH_LAUNCH(false, false); break;
+    case 1: GROOT_LSH_LAUNCH(false, true); break;
+    case 2: GROOT_LSH_LAUNCH(true, false); break;
+    default: GROOT_LSH_LAUNCH(true, true); break;
+  }
+#undef GROOT_LSH_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

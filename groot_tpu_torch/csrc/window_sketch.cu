@@ -38,6 +38,13 @@
 //      row's, and the last tile writes M.
 // Windows past len-w are never computed, and every k-mer of a valid window
 // is valid, so no masking is needed. Codes above 4 count as N (seed 0).
+// Slot groups: where no tile holds the minima of all s slots (s (tw + 1)
+// u64; about s > 870 at w150 even at tw = 32), the tile runs step 2 on
+// groups of sg slots, one after another in the same shared memory: each
+// group ORs its change marks (and its m-block start compares) into the
+// tile's, so a run start is a window where any slot changed; after step 3
+// each group's minima are computed once more and its slots of the run
+// starts written.
 //
 // What bounds it on the card: integer instructions (per k-mer and slot two
 // multiply-xorshift slot hashes and two u64 minima), then the output, 8 + 8s
@@ -115,10 +122,79 @@ __device__ __forceinline__ void block_xor_scan2(u64& a, u64& b, u64* wx, u64* wy
   __syncthreads();  // wx, wy may be reused
 }
 
+// Step 2 for the slots [g0, g0 + gs), their minima in the rows 0..gs-1 of
+// `mins` (row stride os): a thread a (slot, block of m windows); each walk
+// loads kU hashes before it stores, so the loads overlap. kMark: mark in
+// `diff` each window that differs from the one before it in some slot of
+// the group (windows at an m-block start are compared by the caller).
+template <bool kMark>
+__device__ __forceinline__ void slide_slots(const u64* c, u64* mins, uint8_t* diff,
+                                            int os, int nwc, int nk, int m, int k,
+                                            int g0, int gs) {
+  const u64 kseed = static_cast<u64>(k) * kMultiSeed;
+  const int nblk = (nwc + m - 1) / m;
+  for (int task = threadIdx.x; task < gs * nblk; task += blockDim.x) {
+    const int slot = g0 + task % gs, b0 = (task / gs) * m;
+    // slot_hash without a branch: slot 0 multiplies by 1, shifts nothing
+    const u64 mult = slot ? (static_cast<u64>(slot) ^ kseed) : 1ULL;
+    const u64 keep = slot ? ~0ULL : 0ULL;
+    u64* mrow = mins + static_cast<size_t>(slot - g0) * os;
+    const int jend = b0 + m - 1 < nk - 1 ? b0 + m - 1 : nk - 1;
+    u64 sv = ~0ULL;
+    int j = jend;
+    for (; j >= nwc; --j) sv = umin64(sv, mix_slot(c[j], mult, keep));
+    for (; j - (kU - 1) >= b0; j -= kU) {  // suffix minima of the block
+      u64 h[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) h[u] = c[j - u];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        sv = umin64(sv, mix_slot(h[u], mult, keep));
+        mrow[j - u] = sv;
+      }
+    }
+    for (; j >= b0; --j) {
+      sv = umin64(sv, mix_slot(c[j], mult, keep));
+      mrow[j] = sv;
+    }
+    u64 pv = ~0ULL, prev = sv;  // prefix minima of the next block
+    const int iend = b0 + m < nwc ? b0 + m : nwc;
+    int i = b0 + 1;
+    for (; i + kU <= iend; i += kU) {
+      u64 h[kU], v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        h[u] = c[i + u + m - 1];
+        v[u] = mrow[i + u];
+      }
+      bool changed[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        pv = umin64(pv, mix_slot(h[u], mult, keep));
+        v[u] = umin64(v[u], pv);
+        changed[u] = v[u] != prev;
+        prev = v[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        mrow[i + u] = v[u];
+        if (kMark && changed[u]) diff[i + u] = 1;
+      }
+    }
+    for (; i < iend; ++i) {
+      pv = umin64(pv, mix_slot(c[i + m - 1], mult, keep));
+      const u64 v = umin64(mrow[i], pv);
+      mrow[i] = v;
+      if (kMark && v != prev) diff[i] = 1;
+      prev = v;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) window_sketch_kernel(
     const uint8_t* __restrict__ codes, const int32_t* __restrict__ lens,
     const int32_t* __restrict__ tile_row, const int32_t* __restrict__ row_tile0,
-    int L, int k, int s, int w, int tw,
+    int L, int k, int s, int sg, int w, int tw,
     unsigned long long* __restrict__ tile_state,
     unsigned long long* __restrict__ tile_counter,
     int64_t* __restrict__ total, int64_t* __restrict__ row_counts,
@@ -132,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) window_sketch_kernel(
   const int m = w - k + 1;
   const int os = tw + 1;  // row stride of the minima
   u64* mins = smem;
-  const size_t n_mins = static_cast<size_t>(s) * os, n_xy = 2 * static_cast<size_t>(tw + w + 1);
+  const size_t n_mins = static_cast<size_t>(sg) * os, n_xy = 2 * static_cast<size_t>(tw + w + 1);
   u64* c = mins + (n_mins > n_xy ? n_mins : n_xy);
   int32_t* rs_list = reinterpret_cast<int32_t*>(c + tw + m);
   uint8_t* diff = reinterpret_cast<uint8_t*>(rs_list + tw);
@@ -184,67 +260,25 @@ __global__ void __launch_bounds__(kThreads) window_sketch_kernel(
     c[j] = umin64(rotl64(X[j + k] ^ X[j], j + k - 1), rotr64(Y[j + k] ^ Y[j], j));
   __syncthreads();  // the minima overwrite X and Y
 
-  // 2. sliding minimum: a thread a (slot, block of m windows); each walk
-  //    loads kU hashes before it stores, so the loads overlap
-  const u64 kseed = static_cast<u64>(k) * kMultiSeed;
-  const int nblk = (nwc + m - 1) / m;
-  for (int task = threadIdx.x; task < s * nblk; task += blockDim.x) {
-    const int slot = task % s, b0 = (task / s) * m;
-    // slot_hash without a branch: slot 0 multiplies by 1, shifts nothing
-    const u64 mult = slot ? (static_cast<u64>(slot) ^ kseed) : 1ULL;
-    const u64 keep = slot ? ~0ULL : 0ULL;
-    u64* mrow = mins + static_cast<size_t>(slot) * os;
-    const int jend = b0 + m - 1 < nk - 1 ? b0 + m - 1 : nk - 1;
-    u64 sv = ~0ULL;
-    int j = jend;
-    for (; j >= nwc; --j) sv = umin64(sv, mix_slot(c[j], mult, keep));
-    for (; j - (kU - 1) >= b0; j -= kU) {  // suffix minima of the block
-      u64 h[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) h[u] = c[j - u];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        sv = umin64(sv, mix_slot(h[u], mult, keep));
-        mrow[j - u] = sv;
+  // 2. sliding minima, all s slots at once (sg == s), or in groups of sg
+  //    slots whose change marks are ORed, windows at an m-block start
+  //    compared group by group (their minima are overwritten by the next)
+  const bool grouped = sg < s;
+  for (int g0 = 0; g0 < s; g0 += sg) {
+    const int gs = s - g0 < sg ? s - g0 : sg;
+    slide_slots<true>(c, mins, diff, os, nwc, nk, m, k, g0, gs);
+    __syncthreads();
+    if (grouped) {
+      for (int i = m + threadIdx.x * m; i < nwc; i += blockDim.x * m) {
+        bool f = false;
+        for (int slot = 0; slot < gs && !f; ++slot)
+          f = mins[static_cast<size_t>(slot) * os + i] !=
+              mins[static_cast<size_t>(slot) * os + i - 1];
+        if (f) diff[i] = 1;
       }
-    }
-    for (; j >= b0; --j) {
-      sv = umin64(sv, mix_slot(c[j], mult, keep));
-      mrow[j] = sv;
-    }
-    u64 pv = ~0ULL, prev = sv;  // prefix minima of the next block
-    const int iend = b0 + m < nwc ? b0 + m : nwc;
-    int i = b0 + 1;
-    for (; i + kU <= iend; i += kU) {
-      u64 h[kU], v[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        h[u] = c[i + u + m - 1];
-        v[u] = mrow[i + u];
-      }
-      bool changed[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        pv = umin64(pv, mix_slot(h[u], mult, keep));
-        v[u] = umin64(v[u], pv);
-        changed[u] = v[u] != prev;
-        prev = v[u];
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        mrow[i + u] = v[u];
-        if (changed[u]) diff[i + u] = 1;
-      }
-    }
-    for (; i < iend; ++i) {
-      pv = umin64(pv, mix_slot(c[i + m - 1], mult, keep));
-      const u64 v = umin64(mrow[i], pv);
-      mrow[i] = v;
-      if (v != prev) diff[i] = 1;
-      prev = v;
+      __syncthreads();
     }
   }
-  __syncthreads();
 
   // 3. flags (a thread a run of consecutive windows), ranks, look-back
   const int per = (tw + blockDim.x - 1) / blockDim.x;
@@ -256,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) window_sketch_kernel(
     if (e >= nt) break;
     const int i = e + halo;
     bool f = (a0 + i == 0) || diff[i];
-    if (!f && i > 0 && i % m == 0)
+    if (!grouped && !f && i > 0 && i % m == 0)
       for (int slot = 0; slot < s && !f; ++slot)
         f = mins[static_cast<size_t>(slot) * os + i] !=
             mins[static_cast<size_t>(slot) * os + i - 1];
@@ -312,60 +346,157 @@ __global__ void __launch_bounds__(kThreads) window_sketch_kernel(
   }
   __syncthreads();
   u64* dst = out_sk + static_cast<size_t>(base) * s;
-  const int n_out = static_cast<int>(agg) * s;  // at most tw * s
-  for (int x = threadIdx.x; x < n_out; x += blockDim.x) {
-    const int q = x / s, slot = x - q * s;
-    dst[x] = mins[static_cast<size_t>(slot) * os + rs_list[q]];
+  if (!grouped) {
+    const int n_out = static_cast<int>(agg) * s;  // at most tw * s
+    for (int x = threadIdx.x; x < n_out; x += blockDim.x) {
+      const int q = x / s, slot = x - q * s;
+      dst[x] = mins[static_cast<size_t>(slot) * os + rs_list[q]];
+    }
+    return;
+  }
+  // groups: each group's minima once more, its slots of the run starts
+  for (int g0 = 0; g0 < s; g0 += sg) {
+    const int gs = s - g0 < sg ? s - g0 : sg;
+    slide_slots<false>(c, mins, diff, os, nwc, nk, m, k, g0, gs);
+    __syncthreads();
+    const int n_out = static_cast<int>(agg) * gs;
+    for (int x = threadIdx.x; x < n_out; x += blockDim.x) {
+      const int q = x / gs, slot = x - q * gs;
+      dst[static_cast<size_t>(q) * s + g0 + slot] =
+          mins[static_cast<size_t>(slot) * os + rs_list[q]];
+    }
+    __syncthreads();  // the next group overwrites the minima
   }
 }
 
-}  // namespace
-
-// The windows a tile for (k, s, w) on the current device: the widest of
-// kTileWidths that lets two blocks share an SM (by the occupancy query,
-// which counts the static and the per-block reserved shared memory), else
-// the widest that fits one; 0 when none fits, -error on a CUDA error.
-extern "C" int groot_window_tile_width(int k, int s, int w) {
-  if (k < 1 || w < k || s < 1) return 0;
+// The dynamic shared memory a block may take on the current device (the
+// opt-in limit less the kernel's static shared memory), with the kernel's
+// attribute raised to it.
+cudaError_t dynamic_limit(size_t* limit) {
   int dev = 0, optin = 0;
   cudaFuncAttributes fa{};
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, window_sketch_kernel);
-  const size_t limit = optin - fa.sharedSizeBytes;  // dynamic bytes a block
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(window_sketch_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(limit));
-  for (int want = 2; want >= 1 && err == cudaSuccess; --want) {
-    for (const int tw : kTileWidths) {
-      const size_t smem = tile_smem(tw, s, k, w);
-      int blocks = 0;
-      if (smem > limit) continue;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, window_sketch_kernel, kThreads, smem);
-      if (err != cudaSuccess) break;
-      if (blocks >= want) return tw;
+  if (err != cudaSuccess) return err;
+  *limit = optin - fa.sharedSizeBytes;
+  return cudaFuncSetAttribute(window_sketch_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*limit));
+}
+
+// Whether a tile of tw windows and sg slots at once fits `limit` with at
+// least `want` blocks an SM (the occupancy query counts the static and the
+// per-block reserved shared memory).
+cudaError_t tile_fits(int tw, int sg, int k, int w, int want, size_t limit,
+                      bool* fits) {
+  const size_t smem = tile_smem(tw, sg, k, w);
+  int blocks = 0;
+  *fits = false;
+  if (smem > limit) return cudaSuccess;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, window_sketch_kernel, kThreads, smem);
+  *fits = err == cudaSuccess && blocks >= want;
+  return err;
+}
+
+// The slots a tile of tw windows takes at once: all s when they fit,
+// else the most that let two blocks share an SM, else the most that fit
+// one block (a binary search; fewer slots never take more memory); 0
+// when not one slot fits.
+cudaError_t slot_group(int tw, int k, int s, int w, size_t limit, int* sg) {
+  *sg = tile_smem(tw, s, k, w) <= limit ? s : 0;
+  cudaError_t err = cudaSuccess;
+  for (int want = 2; want >= 1 && *sg == 0 && err == cudaSuccess; --want) {
+    int lo = 0, hi = s - 1;  // the most that fit lies in [lo, hi]
+    while (lo < hi && err == cudaSuccess) {
+      const int mid = (lo + hi + 1) / 2;
+      bool fits = false;
+      err = tile_fits(tw, mid, k, w, want, limit, &fits);
+      if (fits) lo = mid; else hi = mid - 1;
+    }
+    *sg = lo;
+  }
+  return err;
+}
+
+// The windows a tile for (k, s, w) on the current device: the widest of
+// kTileWidths whose s slots at once let two blocks share an SM, else the
+// widest whose s slots fit one block; where no tile holds every slot, the
+// widest that holds a slot group of two blocks an SM, else of one (the
+// kernel then runs the slots in groups: slot_group).
+cudaError_t pick_tile(int k, int s, int w, size_t limit, int* tw_out) {
+  cudaError_t err = cudaSuccess;
+  *tw_out = 0;
+  for (int groups = 0; groups <= 1; ++groups) {
+    for (int want = 2; want >= 1 && err == cudaSuccess; --want) {
+      for (const int tw : kTileWidths) {
+        bool fits = false;
+        err = tile_fits(tw, groups ? 1 : s, k, w, want, limit, &fits);
+        if (err != cudaSuccess) break;
+        if (fits) {
+          *tw_out = tw;
+          return cudaSuccess;
+        }
+      }
     }
   }
-  return err == cudaSuccess ? 0 : -static_cast<int>(err);
+  return err;
+}
+
+}  // namespace
+
+// The windows a tile for (k, s, w) on the current device (pick_tile); 0
+// when no tile fits (a window too wide), -error on a CUDA error.
+extern "C" long long groot_window_tile_width(long long k, long long s, long long w) {
+  if (k < 1 || w < k || s < 1 || w > INT32_MAX || s > INT32_MAX) return 0;
+  size_t limit = 0;
+  int tw = 0;
+  cudaError_t err = dynamic_limit(&limit);
+  if (err == cudaSuccess)
+    err = pick_tile(static_cast<int>(k), static_cast<int>(s), static_cast<int>(w), limit, &tw);
+  return err == cudaSuccess ? tw : -static_cast<long long>(err);
+}
+
+// The slots a tile of tw windows takes at once for (k, s, w) on the
+// current device (slot_group; s when they all fit), -error on a CUDA error.
+extern "C" long long groot_window_slot_group(long long k, long long s, long long w,
+                                             long long tw) {
+  if (k < 1 || w < k || s < 1 || tw < 1 || w > INT32_MAX || s > INT32_MAX ||
+      tw > 32 * kThreads)
+    return 0;
+  size_t limit = 0;
+  int sg = 0;
+  cudaError_t err = dynamic_limit(&limit);
+  if (err == cudaSuccess)
+    err = slot_group(static_cast<int>(tw), static_cast<int>(k), static_cast<int>(s),
+                     static_cast<int>(w), limit, &sg);
+  return err == cudaSuccess ? sg : -static_cast<long long>(err);
 }
 
 // tile_row: int32 [n], the row of each tile; row_tile0: int32 [R], the
 // first tile of each row; tile_state: n + 1 zeroed words (the tiles'
 // states, then the tile counter); total: int64 [1] (M); row_counts: zeroed
-// int64 [R].
+// int64 [R]. A tile of tw windows takes sg of the s slots at once
+// (groot_window_tile_width, groot_window_slot_group), in groups when
+// sg < s; cudaErrorInvalidValue when that passes the shared memory.
 extern "C" int groot_window_sketch(
     const void* codes, const void* lens, const void* tile_row,
-    const void* row_tile0, int R, int L, int k, int s, int w, int tw, int n,
-    void* tile_state, void* total, void* row_counts, void* out_row,
+    const void* row_tile0, int R, int L, int k, int s, int w, int tw, int sg,
+    int n, void* tile_state, void* total, void* row_counts, void* out_row,
     void* out_col, void* out_sk, void* stream) {
   if (R < 1 || n < 1 || tw < 1 || tw > 32 * kThreads || k < 1 || w < k ||
-      L < w || s < 1)
+      L < w || s < 1 || sg < 1 || sg > s)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tile_smem(tw, s, k, w);
-  cudaError_t err = cudaFuncSetAttribute(
+  const size_t smem = tile_smem(tw, sg, k, w);
+  if (smem > 48 * 1024) {  // past the default: ask the card
+    size_t limit = 0;
+    const cudaError_t err = dynamic_limit(&limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
       window_sketch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -373,7 +504,7 @@ extern "C" int groot_window_sketch(
   window_sketch_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(lens),
       static_cast<const int32_t*>(tile_row), static_cast<const int32_t*>(row_tile0),
-      L, k, s, w, tw, state, state + n, static_cast<int64_t*>(total),
+      L, k, s, sg, w, tw, state, state + n, static_cast<int64_t*>(total),
       static_cast<int64_t*>(row_counts), static_cast<int32_t*>(out_row),
       static_cast<int32_t*>(out_col), static_cast<u64*>(out_sk));
   return static_cast<int>(cudaGetLastError());

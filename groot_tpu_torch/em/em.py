@@ -28,7 +28,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from .._build import I, I64, Kernel, P, ptr, resolve_device
+from .._build import I, I64, Kernel, P, card_query, ptr, resolve_device, smem_optin
 
 TOLERANCE = np.nextafter(1.0, 2.0) - 1.0  # em.go:11
 ALPHA_LIMIT = 1e-7
@@ -37,11 +37,10 @@ ALPHA_CHANGE_LIMIT = 1e-2
 
 EM_BATCHED = Kernel(
     "em_batched", "groot_em_batched",
-    (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I64, I, I, P, P),
+    (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I64, I, I, P, P, P),
     source="groot_tpu_torch/csrc/em.cu",
     replaces="groot_tpu/em/em.py:159",
 )
-MAX_SMEM = 232_448  # the H100's dynamic shared memory per block, bytes
 MASK_LANES = 32     # path lanes of the kernel's mask route
 ECS_PER_THREAD = 1  # live ecs a thread of the kernel aims at (csrc/em.cu)
 
@@ -206,7 +205,7 @@ def em_batched(
         raise ValueError("an EM batch needs a path lane")
     bad = ((membership != 0) & (membership != 1)).any()
     lay = em_layout(membership, counts, n_paths)
-    words = 2 * E + 4 * 32 * 32  # the mask route: masks, counts, warp sums
+    least = fits = 0
     if Pn > MASK_LANES:
         csr = em_csr(membership, lay)
         wide = lay["width"] > MASK_LANES
@@ -214,9 +213,8 @@ def em_batched(
         nnz = csr["ec_ptr"].gather(1, nl[:, None])[:, 0].long()
         least = torch.where(wide, 2 * nl + 2 * wd, 0).max()
         full = torch.where(wide, 3 * nl + 3 * wd + 2 + 2 * nnz, 0)
-        fits = torch.where(full <= MAX_SMEM // 4, full, 0).max()
+        fits = torch.where(full <= smem_optin(dev) // 4, full, 0).max()
         bad, least, fits = torch.stack([bad.long(), least, fits]).tolist()
-        words = max(words, least, fits)
         csr_ptrs = [ptr(csr[k]) for k in ("ec_ptr", "ec_base", "ec_paths",
                                           "path_ptr", "path_base", "path_ecs")]
     else:  # every graph fits the mask route: no CSR (null pointers)
@@ -224,16 +222,17 @@ def em_batched(
         bad = bool(bad)
     if bad:
         raise ValueError("membership must be 0/1")
-    if 4 * words > MAX_SMEM:
-        raise ValueError(f"EM batch E={E} P={Pn} needs {4 * words} bytes of "
-                         "shared memory")
+    words = card_query(dev, "groot_em_smem_words", E, least, fits)
+    nbytes = card_query(dev, "groot_em_scratch_bytes", G, E, Pn, least, fits)
+    scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+               if nbytes else None)
     threads, NP = em_launch_shape(E, Pn)
     n_paths = n_paths.contiguous()
     EM_BATCHED.launch(
         dev, ptr(lay["mask"]), ptr(lay["cnt"]), ptr(lay["n_live"]),
         ptr(lay["width"]), ptr(n_paths), *csr_ptrs,
         G, E, Pn, NP, threads, words, min_iterations, max_iterations,
-        ptr(it), ptr(alpha),
+        ptr(it), ptr(alpha), None if scratch is None else ptr(scratch),
     )
     return it, alpha
 

@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._build import I, Kernel, P, ptr
+from .._build import I, Kernel, P, card_query, ptr
 from ..io import native
 from .window import Key
 
@@ -42,7 +42,7 @@ M32 = 0xFFFFFFFF
 LSH_QUERY = Kernel(
     "lsh_query", "groot_lsh_query",
     (P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, ctypes.c_float, I,
-     P, P),
+     P, P, P),
     source="groot_tpu_torch/csrc/lsh_query.cu",
     replaces="groot_tpu/index/lshe.py:557",
 )
@@ -168,18 +168,28 @@ def query_device(q, kmer_counts, sketches, sorted_sigs, band_idx, *,
     B, s = q.shape
     Lb, N = sorted_sigs.shape
     C = Lb * M
-    if s > 64 or C > 4096:
-        raise ValueError(f"lsh_query takes s <= 64 and L*M <= 4096, got s={s} C={C}")
     win = torch.empty((B, C), dtype=torch.int32, device=q.device)
     contain = torch.empty((B, C), dtype=torch.float32, device=q.device)
     if B:
         args = [t.contiguous() for t in (q, kmer_counts, sketches, sorted_sigs, band_idx)]
+        nbytes = query_scratch_bytes(B, s, Lb, M, q.device)
+        scratch = (torch.empty(nbytes // 4, dtype=torch.int32, device=q.device)
+                   if nbytes else None)
         LSH_QUERY.launch(
             q.device, *(ptr(t) for t in args), B, s, N, Lb, K, M,
             -1 if qmax is None else int(qmax), float(domain_size),
             float(threshold), int(qmax is not None), ptr(win), ptr(contain),
+            None if scratch is None else ptr(scratch),
         )
     return win, contain
+
+
+def query_scratch_bytes(B: int, s: int, L: int, M: int, device) -> int:
+    """The bytes of scratch the lsh_query kernel takes for B reads of s
+    slots and L bands of M candidates on `device`, as csrc/lsh_query.cu
+    reports them (groot_lsh_query_scratch_bytes): 0 for the shared route,
+    else the global route's int32 [B, 2 Cp] sort buffers."""
+    return card_query(device, "groot_lsh_query_scratch_bytes", B, s, L, M)
 
 
 class _KeysView:

@@ -31,7 +31,6 @@ reproduced (see tests/test_index.py):
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
@@ -39,7 +38,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from .._build import I, Kernel, P, library, ptr
+from .._build import I, Kernel, P, card_query, ptr
 from ..graph.grootgraph import GrootGraph
 from ..graph.pack import PackedPaths, pack_graph_paths
 from ..io import native
@@ -47,30 +46,28 @@ from ..ops import nthash
 
 WINDOW_SKETCH = Kernel(
     "window_sketch", "groot_window_sketch",
-    (P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P),
+    (P, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P),
     source="groot_tpu_torch/csrc/window_sketch.cu",
     replaces="groot_tpu/index/window.py:71",
 )
 
 
 @functools.lru_cache(maxsize=None)
-def tile_width(k: int, s: int, w: int, device: torch.device) -> int:
-    """The kernel's windows a tile on a card, as csrc/window_sketch.cu picks
-    it (groot_window_tile_width): the widest of 512, 256, 128, 64 and 32
-    that lets two blocks share an SM, else the widest that fits one; raises
-    when none fits (a very large s or w)."""
-    fn = library().groot_window_tile_width
-    fn.restype = ctypes.c_int
-    fn.argtypes = [I, I, I]
-    with torch.cuda.device(device):
-        tw = fn(k, s, w)
-    if tw < 0:
-        raise RuntimeError("groot_window_tile_width failed: "
-                           f"{library().groot_cuda_error_string(-tw).decode()}")
-    if tw == 0:
+def tile_width(k: int, s: int, w: int, device: torch.device) -> Tuple[int, int]:
+    """The kernel's tile on a card, as csrc/window_sketch.cu picks it:
+    (windows a tile, slots a group). The width is the widest of 512, 256,
+    128, 64 and 32 whose s slots at once let two blocks share an SM, else
+    the widest that fits one (`groot_window_tile_width`), and the group is
+    then s. Where no tile holds every slot, the widest that holds a group
+    of slots, and the group the most slots that fit it
+    (`groot_window_slot_group`): the kernel runs the slots group by group.
+    Raises only when not one slot fits (a window too wide)."""
+    tw = card_query(device, "groot_window_tile_width", k, s, w)
+    sg = card_query(device, "groot_window_slot_group", k, s, w, tw) if tw else 0
+    if sg == 0:
         raise ValueError(f"window k={k} s={s} w={w}: no tile of the window "
                          "kernel fits in shared memory")
-    return tw
+    return tw, sg
 
 
 def tile_table(nw_row: np.ndarray, tw: int) -> Tuple[np.ndarray, int]:
@@ -179,7 +176,7 @@ def window_run_starts(codes: torch.Tensor, lens: torch.Tensor, k: int, s: int,
     if codes.device.type != "cuda":
         raise ValueError(f"no kernel for device {codes.device}")
     dev = codes.device
-    tw = tile_width(k, s, w, dev)
+    tw, sg = tile_width(k, s, w, dev)
     codes, lens = codes.contiguous(), lens.contiguous()
     # the one sync before the launch: the row lengths, for the length
     # check, the output rows and the tile table, made on the host
@@ -203,7 +200,7 @@ def window_run_starts(codes: torch.Tensor, lens: torch.Tensor, k: int, s: int,
     out_sk = torch.empty((cap, s), dtype=torch.int64, device=dev)
     WINDOW_SKETCH.launch(
         dev, ptr(codes), ptr(lens), ptr(table), ptr(table[n:]), R, L, k, s, w,
-        tw, n, ptr(state), ptr(state[n + 1:]), ptr(state[n + 2:]),
+        tw, sg, n, ptr(state), ptr(state[n + 1:]), ptr(state[n + 2:]),
         ptr(out_row), ptr(out_col), ptr(out_sk),
     )
     M = int(state[n + 1])  # the sync after it

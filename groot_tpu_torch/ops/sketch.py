@@ -21,8 +21,10 @@ KHF_SKETCH = Kernel(
     source="groot_tpu_torch/csrc/khf_sketch.cu",
     replaces="groot_tpu/ops/pallas_sketch.py:274",
 )
-MAX_S = 64    # kMaxSlots in csrc/khf_sketch.cu
-MAX_K = 1024  # kMaxK: a warp's ring of next_pow2(k + 32) prefixes fits 48 KB
+# kMaxK: a warp's ring of next_pow2(k + 32) prefixes fits 48 KB. A k-mer
+# longer than any window groot indexes; the one shape limit of the kernel
+# (any s: more than 64 slots run in groups of at most 64)
+MAX_K = 1024
 
 
 def khf_sketch(
@@ -37,7 +39,7 @@ def khf_sketch(
         raise TypeError("valid_len must be int32 [B]")
     if valid_len.device != codes.device:
         raise ValueError("codes and valid_len must be on one device")
-    if not (1 <= s <= MAX_S and 1 <= k <= MAX_K):
+    if not (s >= 1 and 1 <= k <= MAX_K):
         raise ValueError(f"unsupported sketch shape k={k} s={s}")
     if codes.device.type == "cpu":
         return khf_sketch_torch(codes, valid_len, k, s)

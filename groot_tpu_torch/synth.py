@@ -300,10 +300,11 @@ def cascade_case(seed, Gs=3, P=5, Pb=8, Lb=160, Lr=32, C=12, Nb=24,
 
 
 def em_batch(seed: int, n_paths: Sequence[int], E: int, P: Optional[int] = None,
-             zero_frac: float = 0.1):
+             zero_frac: float = 0.1, min_fill: float = 0.25):
     """A padded EM batch (em.em_batched's inputs) as numpy arrays: float32
     0/1 membership [G, E, P], float32 counts [G, E], int32 n_paths [G]. Graph
-    g has n_paths[g] paths and a random number of ecs up to E; as in a
+    g has n_paths[g] paths and a random number of ecs from min_fill * E up
+    to E; as in a
     variation graph, about half its ecs hold every path and the rest a
     random subset; a `zero_frac` share of the counts is 0 and the padding
     ecs are empty with count 0. n_paths 0 makes an empty graph."""
@@ -315,7 +316,7 @@ def em_batch(seed: int, n_paths: Sequence[int], E: int, P: Optional[int] = None,
     for g, n in enumerate(n_paths):
         if n == 0 or E == 0:
             continue
-        n_ec = int(rng.integers(max(E // 4, 1), E + 1))
+        n_ec = int(rng.integers(max(int(E * min_fill), 1), E + 1))
         full = rng.random(n_ec) < 0.5
         for e in range(n_ec):
             k = n if full[e] else int(rng.integers(1, n + 1))
@@ -371,7 +372,8 @@ def match_bits_case(seed: int, P: int = 3, Lp: int = 200, K: int = 40,
 def match_bits_batch_case(seed: int, n_graphs: int = 6, rows: Tuple[int, int] = (1, 5),
                           row_len: Tuple[int, int] = (300, 1500), n_reads: int = 60,
                           read_len: Sequence[int] = (20, 25, 31, 32, 60, 100, 150),
-                          per_graph: Tuple[int, int] = (1, 12), n_frac: float = 0.01):
+                          per_graph: Tuple[int, int] = (1, 12), n_frac: float = 0.01,
+                          long_reads: Sequence[int] = ()):
     """Seeded inputs of one batched match-bits call
     (`align.aligner.match_bits_batch`, nvar 6) as numpy arrays: path rows
     (u8 codes, flat, each row's real bases; int64 row_off, int32 row_len),
@@ -382,7 +384,9 @@ def match_bits_batch_case(seed: int, n_graphs: int = 6, rows: Tuple[int, int] = 
     differ in length; an `n_frac` share of Ns); most reads are cut from a
     row (some reverse complemented, some with an N), the rest random; each
     graph takes a random subset of the reads, so a read can be seeded to
-    several graphs."""
+    several graphs. Each of `long_reads` (lengths, after the others) is a
+    row's tail (Ns replaced) followed by random bases, half of them
+    reverse complemented, seeded to that row's graph alone."""
     rng = np.random.default_rng(seed)
     codes, lens, segs, graph_rows = [], [], [], []
     for _g in range(n_graphs):
@@ -405,8 +409,19 @@ def match_bits_batch_case(seed: int, n_graphs: int = 6, rows: Tuple[int, int] = 
         graph_rows.append(grows)
     R = n_reads
     rlen = np.asarray(read_len)[rng.integers(0, len(read_len), R)].astype(np.int32)
+    rlen = np.concatenate([rlen, np.asarray(long_reads, np.int32)])
     Lr = -(-max(int(rlen.max()), 32) // 32) * 32
-    reads = np.full((R, Lr), 4, np.uint8)
+    reads = np.full((len(rlen), Lr), 4, np.uint8)
+    long_graph = []
+    for i in range(R, len(rlen)):
+        g = int(rng.integers(0, n_graphs))
+        row = graph_rows[g][int(rng.integers(0, len(graph_rows[g])))]
+        tail = row[int(rng.integers(0, len(row))):]
+        n = int(rlen[i])
+        r = np.concatenate([tail, rng.integers(0, 4, max(n - len(tail), 0))])[:n]
+        r = np.where(r >= 4, rng.integers(0, 4, n), r)
+        reads[i, :n] = _RC_CODE[r[::-1]] if rng.random() < 0.5 else r
+        long_graph.append(g)
     for i in range(R):
         n = int(rlen[i])
         if rng.random() < 0.85:
@@ -422,11 +437,12 @@ def match_bits_batch_case(seed: int, n_graphs: int = 6, rows: Tuple[int, int] = 
             r[int(rng.integers(0, n))] = 4
         reads[i, :n] = r
     pairs = []
-    for seg in segs:
+    for g, seg in enumerate(segs):
         take = rng.choice(R, size=min(int(rng.integers(per_graph[0], per_graph[1] + 1)), R),
-                          replace=False)
+                          replace=False).tolist()
+        take += [R + i for i, lg in enumerate(long_graph) if lg == g]
         seg[0], seg[1] = len(pairs), len(take)
-        pairs.extend(take.tolist())
+        pairs.extend(take)
     lens = np.asarray(lens, np.int32)
     row_off = (np.cumsum(lens) - lens).astype(np.int64)
     return (np.concatenate(codes), row_off, lens, reads, rlen,

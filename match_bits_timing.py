@@ -14,6 +14,8 @@ of 60-120 reads each):
     `groot_match_bits` has this version's C signature and work table),
     that kernel swapped into this version's wrapper and timed beside this
     one in turns (earlier, this, this, earlier), bits equal.
+The read lengths, pairs and row lengths go up with each call's layout, as
+the `host` engine's calls send them.
 Prints the card's name and power limit first. Needs one CUDA card.
 """
 
@@ -62,7 +64,12 @@ def main(argv=None) -> int:
     for name, case in CASES.items():
         a = synth.match_bits_batch_case(**case)
         rows = torch.from_numpy(a[0]).to(dev)
-        rest = [torch.from_numpy(x).to(dev) for x in a[1:6]] + [a[6]]
+        # the row and read tables on the card; lengths and pairs on the
+        # host, uploaded with the layout as the aligner's calls do
+        rest = [torch.from_numpy(a[1]).to(dev), a[2], torch.from_numpy(a[3]).to(dev),
+                *a[4:]]
+        ls = aligner.staged_bases(a[6], a[3].shape[1], a[4], a[5], a[2])
+        limit = aligner.match_limits(str(dev))[0]
         fn = lambda: aligner.match_bits_batch(rows, *rest)  # noqa: E731
         want = fn()[0].view(torch.int32).clone()
         print(f"{name}: {want.numel()} words, {len(a[5])} pairs", flush=True)
@@ -71,8 +78,8 @@ def main(argv=None) -> int:
             try:
                 cs._check(torch.equal(fn()[0].view(torch.int32), want),
                           f"items {items}: bits differ")
-                blocks = len(aligner.work_table(a[6], 6, a[3].shape[1], items,
-                                                aligner.MAX_BLOCK_WORDS)[1])
+                blocks = len(aligner.work_table(a[6], 6, ls, items,
+                                                aligner.MAX_BLOCK_WORDS, limit)[1])
                 print(f"  items {items}: {blocks} blocks, device "
                       f"{cs._device_ms(fn, 'match_bits'):.5f} ms, events "
                       f"{cs._time_ms(fn, dev):.4f} ms", flush=True)

@@ -114,6 +114,29 @@ def test_em_batched_torch_equals_reference_loop():
     assert np.all(np.abs(alpha.numpy() - a_r) <= 1e-5 * np.maximum(1.0, np.abs(a_r)))
 
 
+@pytest.mark.parametrize("n_paths", [[3, 7], [3, 40]])
+def test_em_large_batch_equals_reference_and_plans(n_paths):
+    """A batch of E = 30,000 ecs, each graph's more than 27,008 live ecs
+    past what the kernel's shared memory stages (the mask route, [3, 7]
+    paths; a mask graph and a CSR graph of 40 paths), so the card's launch
+    plan (csrc/em.cu, held in the card tests) takes its large route: the
+    plain loop gives `_run_em_batched`'s iteration counts and its alphas
+    within 5e-5 of max(1, |alpha|). The tolerance is not the small
+    batches' 1e-5: both sum ~29,000 float32 products per path and round
+    in their own orders, and that alone parts their alphas by more than
+    1e-5."""
+    m, c, n = synth.em_batch(1, n_paths, 30_000, zero_frac=0.02, min_fill=0.95)
+    it_r, alpha_r, _b4 = ref_em._run_em_batched(
+        jnp.asarray(m), jnp.asarray(c), jnp.asarray(n), 10, 3000)
+    it, alpha = em.em_batched(*(torch.from_numpy(x) for x in (m, c, n)), 10, 3000)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(it_r))
+    a_r = np.asarray(alpha_r, np.float64)
+    assert np.all(np.abs(alpha.numpy() - a_r) <= 5e-5 * np.maximum(1.0, np.abs(a_r)))
+    lay = em.em_layout(*(torch.from_numpy(x) for x in (m, c, n)))
+    assert int(lay["n_live"].min()) > 27_008
+    assert bool((lay["width"] > em.MASK_LANES).any()) == (max(n_paths) > em.MASK_LANES)
+
+
 def test_em_rejects_bad_input():
     m = torch.zeros((1, 3, 2))
     c = torch.zeros((1, 3))

@@ -122,6 +122,11 @@ def test_khf_sketch_kernel_long_reads(cuda, k, s):
     (31, 20, 40_000, 64),   # contigs: 8 warps share a read
     (65, 64, 5_000, 33),    # a shared read, two slots a lane
     (51, 30, 1_024, 100),   # the shortest shared reads, most with idle warps
+    (31, 65, 150, 300),     # past 64 slots: two groups (33 + 32)
+    (31, 128, 150, 2048),   # two groups of 64, the main path's batch
+    (31, 256, 150, 517),    # four groups
+    (31, 128, 40_000, 16),  # groups of a shared read
+    (51, 200, 1_024, 50),   # four groups of 50, shared reads
 ])
 def test_khf_sketch_kernel_shapes(cuda, k, s, L, B):
     """The kernel equals the plain version and the numpy golden: rows with
@@ -366,12 +371,14 @@ def _window_rows(rng, L: int, w: int, tw: int):
 @pytest.mark.parametrize("k,s,w,L", [(31, 20, 150, 3000), (31, 16, 100, 3000),
                                      (7, 16, 40, 3000), (31, 20, 150, 40_000),
                                      (31, 20, 31, 3000), (7, 3, 7, 3000),
-                                     (31, 64, 150, 3000), (15, 200, 400, 3000)])
+                                     (31, 64, 150, 3000), (15, 200, 400, 3000),
+                                     (31, 128, 150, 3000), (31, 1024, 150, 3000)])
 def test_window_sketch_kernel_matches_plain_and_native(cuda, k, s, w, L):
-    """m = 1 (w = k), an s that takes a narrower tile (s = 64 and 200),
-    every tile edge, short, empty and all-N rows."""
+    """m = 1 (w = k), an s that takes a narrower tile (s = 64, 128 and
+    200), s = 1,024, where no tile holds every slot (the slots run in
+    groups), every tile edge, short, empty and all-N rows."""
     assert _build.native_runtime()
-    tw = window.tile_width(k, s, w, cuda)
+    tw = window.tile_width(k, s, w, cuda)[0]
     codes, lens = _window_rows(np.random.default_rng(L + k + s), L, w, tw)
     c, v = torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda)
     before = window.WINDOW_SKETCH.launches
@@ -393,13 +400,24 @@ def test_window_sketch_kernel_matches_plain_and_native(cuda, k, s, w, L):
 @pytest.mark.parametrize("k,s,w", [(31, 20, 150), (31, 64, 150), (15, 200, 400),
                                    (7, 1, 7)])
 def test_window_tile_width_fits_shared_memory(cuda, k, s, w):
-    """The kernel's tile: one of its widths, never wider as s grows, and a
-    shape no tile fits raises."""
-    tw = window.tile_width(k, s, w, cuda)
-    assert tw in (512, 256, 128, 64, 32)
-    assert tw <= window.tile_width(k, min(s, 20), w, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        window.tile_width(k, 2000, w, cuda)
+    """The kernel's tile: one of its widths, never wider as s grows, all s
+    slots at once; at s = 2,000, which no tile holds, slot groups of fewer
+    slots, with which the kernel equals its plain version and the native
+    runtime."""
+    tw, sg = window.tile_width(k, s, w, cuda)
+    assert tw in (512, 256, 128, 64, 32) and sg == s
+    assert tw <= window.tile_width(k, min(s, 20), w, cuda)[0]
+    tw, sg = window.tile_width(k, 2000, w, cuda)
+    assert tw in (512, 256, 128, 64, 32) and 1 <= sg < 2000
+    codes, lens = _window_rows(np.random.default_rng(s), 2 * tw + w + 50, w, tw)
+    c, v = torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda)
+    got = window.window_run_starts(c, v, k, 2000, w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, window.window_run_starts_torch(c, v, k, 2000, w)):
+        assert torch.equal(a.long(), b.long())
+    want = native.window_sketch(codes, lens.astype(np.int64), k, 2000, w)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy().view(b.dtype), b)
 
 
 @pytest.mark.cuda
@@ -480,6 +498,41 @@ def test_em_kernel_routes_match_plain(cuda, n_paths, E, iters):
         assert bool((it[1:] == 40).all())
     if max(n_paths) > 32:
         assert bool((width > 32).any()) and bool((width <= 32).any())
+    tol = 1e-5 * alpha_p.abs().clamp(min=1.0)
+    assert bool(((alpha - alpha_p).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("n_paths", [[3, 7, 2], [3, 40, 33]])
+def test_em_kernel_large_batches_match_plain(cuda, n_paths, seed):
+    """E = 30,000: graphs of more than 27,008 live ecs read their masks
+    and counts from device memory (the mask route), or, on the CSR route,
+    stage only their counts, quotients and alphas or, where even those
+    pass the shared memory (seed 1), keep them in the scratch, beside a
+    graph of 100 live ecs staged as before, in one launch: the launch plan
+    stays within the card's shared memory and sizes a scratch exactly when
+    the CSR graph's words pass it; the plain version's iteration counts,
+    its alphas within 1e-5 of max(1, |alpha|)."""
+    m, c, n = synth.em_batch(seed, n_paths, 30_000, zero_frac=0.02, min_fill=0.95)
+    c[2, 100:] = 0.0
+    args = [torch.from_numpy(x).to(cuda) for x in (m, c, n)]
+    lay = em.em_layout(*args)
+    n_live, width = lay["n_live"].long(), lay["width"].long()
+    assert int(n_live[:2].min()) > 27_008 and int(n_live[2]) <= 100
+    G, E, Pn = m.shape
+    least = int(torch.where(width > em.MASK_LANES, 2 * n_live + 2 * width, 0).max())
+    words = _build.card_query(cuda, "groot_em_smem_words", E, least, 0)
+    assert 4 * 32 * 32 <= words <= _build.smem_optin(cuda) // 4 < 2 * int(n_live[:2].min()) + 4 * 32 * 32
+    nbytes = _build.card_query(cuda, "groot_em_scratch_bytes", G, E, Pn, least, 0)
+    assert nbytes == (4 * G * (E + 2 * Pn) if least > words else 0)
+    assert (nbytes > 0) == (Pn > em.MASK_LANES and seed == 1)
+    before = em.EM_BATCHED.launches
+    it, alpha = em.em_batched(*args, 10, 3000)
+    torch.cuda.synchronize()
+    assert em.EM_BATCHED.launches == before + 1
+    it_p, alpha_p = em.run_em_batched_torch(*args, 10, 3000)
+    assert torch.equal(it, it_p)
     tol = 1e-5 * alpha_p.abs().clamp(min=1.0)
     assert bool(((alpha - alpha_p).abs() <= tol).all())
 
@@ -596,14 +649,17 @@ def test_lsh_query_kernel_matches_plain(cuda, mode):
 def _lsh_edge_case(case: str, mode: str):
     """A table and queries at the search's edges: N = 1 or 33 windows; a
     bucket of 30 equal windows (more than M) whose band-0 signature sorts
-    last; s = 64, K = 1, M = 64 for C = 4,096. The queries hold copies of
+    last; s = 64, K = 1, M = 64 for C = 4,096; s = 128 (the read's sketch
+    staged past 64 slots); s = 256, K = 1 for C = 6,144 (the global
+    route: sort buffers in scratch). The queries hold copies of
     table windows (some slots changed), keys below and above every
     signature of band 0, random sketches and rows of no k-mer."""
     rng = np.random.default_rng(len(case) + len(mode))
-    N, s = {"N1": (1, 20), "N33": (33, 20), "tail": (500, 20), "C4096": (3000, 64)}[case]
+    N, s = {"N1": (1, 20), "N33": (33, 20), "tail": (500, 20), "C4096": (3000, 64),
+            "S128": (3000, 128), "C6144": (3000, 256)}[case]
     Kb = {"full": s, "K1": 1, "K2": 2}[mode]
     sk = rng.integers(1 << 40, 1 << 62, size=(N, s)).astype(np.uint64)
-    if case == "C4096":  # a 4-value alphabet: busy buckets
+    if case in ("C4096", "S128", "C6144"):  # a 4-value alphabet: busy buckets
         sk = rng.integers(1, 5, size=(N, s)).astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
     if case == "tail":
         last = int(np.argmax(lshe._mix_bands_np(sk, Kb)[:, 0]))
@@ -629,7 +685,8 @@ def _lsh_edge_case(case: str, mode: str):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,mode", [
     ("N1", "full"), ("N1", "K2"), ("N33", "full"), ("N33", "K1"),
-    ("tail", "full"), ("tail", "K2"), ("C4096", "K1"),
+    ("tail", "full"), ("tail", "K2"), ("C4096", "K1"), ("S128", "K1"),
+    ("S128", "K2"), ("S128", "full"), ("C6144", "K1"),
 ])
 def test_lsh_query_kernel_table_edges(cuda, case, mode):
     q, kc, sk, sigs, idx, Kb = _lsh_edge_case(case, mode)
@@ -650,6 +707,9 @@ def test_lsh_query_kernel_table_edges(cuda, case, mode):
     assert (win >= 0).any()
     if case == "C4096":
         assert win.shape[1] == 4096
+    if case == "C6144":
+        assert win.shape[1] == 6144
+        assert lshe.query_scratch_bytes(len(q), s, s // Kb, M, cuda) > 0
 
 
 def _weight_inputs(seed: int, B: int = 700, C: int = 96, N: int = 3000,
@@ -906,21 +966,28 @@ MATCH_BITS_BATCH_CASES = [
 ]
 
 
+# the shared route's limit that sends every block of a match-bits launch to
+# the global route: no block fits 0 bytes
+GLOBAL_ROUTE = 0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", [None, (64, 3)])
+@pytest.mark.parametrize("layout", [None, (64, 3), "global"])
 @pytest.mark.parametrize("case", MATCH_BITS_BATCH_CASES)
 def test_match_bits_batch_kernel_matches_plain(cuda, case, layout, monkeypatch):
     """One launch for a batch of graphs, bit for bit the plain version's
     (on the card and on the CPU): mixed read lengths, rows of unequal
     length, reads in several graphs, 40 kb rows split into chunks, the main
-    path's ~500 graphs; and a layout of 3-word chunks and small groups."""
-    if layout is not None:
+    path's ~500 graphs; a layout of 3-word chunks and small groups; and
+    every block on the global route (planes and codes in scratch slices)."""
+    if layout not in (None, "global"):
         monkeypatch.setattr(aligner, "ITEMS_PER_BLOCK", layout[0])
         monkeypatch.setattr(aligner, "MAX_BLOCK_WORDS", layout[1])
     args = synth.match_bits_batch_case(**case)
     rows = torch.from_numpy(args[0]).to(cuda)
     before = aligner.MATCH_BITS.launches
-    got, off = aligner.match_bits_batch(rows, *args[1:])
+    got, off = aligner.match_bits_batch(
+        rows, *args[1:], shared_limit=GLOBAL_ROUTE if layout == "global" else None)
     torch.cuda.synchronize()
     assert aligner.MATCH_BITS.launches == before + 1
     got = got.view(torch.int32).cpu()
@@ -934,13 +1001,53 @@ def test_match_bits_batch_kernel_matches_plain(cuda, case, layout, monkeypatch):
 
 @pytest.mark.cuda
 def test_match_bits_kernel_raises_when_a_block_does_not_fit(cuda):
-    """Planes and reads past the card's opt-in shared memory: the launch is
-    refused and the wrapper raises (no CPU fallback)."""
+    """A 200 kb variant on a 200 kb row (the shape whose planes and reads
+    once passed the card's opt-in shared memory and raised): its block
+    takes the global route, and the bits equal the plain version's (an
+    all-N row: every offset matches)."""
     Lr = 200_000
     path = torch.full((1, Lr + 10), 4, dtype=torch.uint8, device=cuda)
     var = torch.zeros((1, Lr), dtype=torch.uint8, device=cuda)
-    with pytest.raises(RuntimeError, match="groot_match_bits"):
-        aligner.match_bits(path, var, torch.full((1,), Lr, dtype=torch.int32, device=cuda))
+    var_len = torch.full((1,), Lr, dtype=torch.int32, device=cuda)
+    ls = aligner.staged_bases(np.array([[0, 1, 0, 1, 11]]), Lr, np.array([Lr]),
+                              np.array([0]), np.array([Lr + 10]))
+    limit = aligner.match_limits(str(cuda))[0]
+    assert aligner.work_table(np.array([[0, 1, 0, 1, 11]]), 1, ls, aligner.ITEMS_PER_BLOCK,
+                              aligner.MAX_BLOCK_WORDS, limit)[2] == 0  # global
+    got = aligner.match_bits(path, var, var_len)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), aligner.match_bits_torch(path, var, var_len)
+                       .view(torch.int32))
+    assert int(got.view(torch.int32)[0, 0, 0]) == (1 << 11) - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "global"])
+def test_match_bits_batch_long_reads_match_plain(cuda, route):
+    """Reads of 100 kb and 200 kb (a row's tail, then random bases) among
+    20-150 bp reads on rows of 300-1,500 bp, in one launch: bit for bit the
+    plain version's on the card, each segment staging its longest read cut
+    to its longest row + 1 (the shared route), and every block on the
+    global route; the long reads match where their row's tail lies."""
+    args = synth.match_bits_batch_case(6, n_graphs=6, n_reads=30,
+                                       long_reads=(100_000, 200_000))
+    rows = torch.from_numpy(args[0]).to(cuda)
+    before = aligner.MATCH_BITS.launches
+    got, off = aligner.match_bits_batch(
+        rows, *args[1:], shared_limit=GLOBAL_ROUTE if route == "global" else None)
+    torch.cuda.synchronize()
+    assert aligner.MATCH_BITS.launches == before + 1
+    got = got.view(torch.int32).cpu()
+    dev_args = [torch.from_numpy(a).to(cuda) for a in args[:-1]]
+    want = aligner.match_bits_batch_torch(*dev_args, args[-1]).view(torch.int32).cpu()
+    assert torch.equal(got, want) and got.numel() == off[-1]
+    segs, pairs, R = args[-1], args[5], len(args[4])
+    for s, (p0, n, _r0, n_rows, W) in enumerate(segs.tolist()):
+        for i, r in enumerate(pairs[p0:p0 + n].tolist()):
+            if r >= R - 2:  # a long read: some variant matches at its tail
+                W32 = -(-W // 32)
+                per = 6 * n_rows * W32
+                assert bool(got[off[s] + i * per:off[s] + (i + 1) * per].any())
 
 
 @pytest.mark.cuda

@@ -170,6 +170,49 @@ def test_device_query_route_matches_jax(sketched, monkeypatch, t):
     assert set(_hits(*got)) <= set(_hits(*host))
 
 
+@pytest.mark.parametrize("s,Kb,t", [(128, None, 0.9), (256, 1, 0.6)])
+def test_query_device_any_s_and_c_matches_jax(indexes, tmp_path, s, Kb, t):
+    """The device query on an index sketched at s = 128 (the optimal K's
+    bands) and at s = 256 with K = 1 (C = 256 x 24 = 6,144 candidate slots,
+    past the shared route's 4,096: the kernel's global route) equals the
+    reference's jitted _query_device."""
+    import jax
+    import jax.numpy as jnp
+
+    from groot_tpu.index.lshe import _query_device
+
+    _paths, codes, lens = indexes
+    synth.tiny_db(str(tmp_path / "msa"))
+    run_index(Info(kmer_size=K, sketch_size=s, window_size=W,
+                   index_dir=str(tmp_path / "idx")), str(tmp_path / "msa"), "cpu")
+    port = ContainmentIndex.load(str(tmp_path / "idx" / "groot.lshe"))
+    ref = RefIndex.load(str(tmp_path / "idx" / "groot.lshe"))
+    q64 = ref_nthash.khf_sketch_np_batch(codes, lens, K, s)
+    kc = (lens - K + 1).astype(np.int32)
+    ref.prepare()
+    Kb = Kb or ref.optimal_k(int(kc.min()), t)
+    C = (s // Kb) * lshe.MAX_PER_BAND
+    hi = (q64 >> np.uint64(32)).astype(np.uint32)
+    lo = (q64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    tab = ref._tables[Kb]
+    fn = jax.jit(_query_device, static_argnames=("K", "domain_size", "threshold"))
+    want = np.asarray(fn(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(tab["sorted_sigs"]),
+        jnp.asarray(tab["idx"]), ref.dev["hi"], ref.dev["lo"], jnp.asarray(kc),
+        Kb, ref.num_window_kmers, t,
+    ))
+    port.prepare()
+    sigs, idx = port._band_tensors(Kb, "cpu")
+    win, _contain = lshe.query_device(
+        torch.from_numpy(q64.view(np.int64)), torch.from_numpy(kc),
+        port.dev_tensors("cpu")["sketches"], sigs, idx, K=Kb,
+        M=lshe.MAX_PER_BAND, domain_size=port.num_window_kmers, threshold=t,
+    )
+    assert win.shape == want.shape == (len(q64), C)
+    np.testing.assert_array_equal(win.numpy(), want)
+    assert (want >= 0).sum() > len(q64)
+
+
 def test_query_device_checks_its_inputs(sketched):
     port, _ref, q64, kc = sketched
     sigs, idx = port._band_tensors(2, "cpu")

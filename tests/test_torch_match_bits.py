@@ -43,36 +43,50 @@ CASES = [
 ]
 
 
+# a shared-route block's dynamic shared memory on an H100, as
+# groot_match_bits_smem_limit gives it: the 232,448 opt-in bytes less the
+# kernel's 2,052-byte static queue
+H100_LIMIT = 232_448 - 2_052
+
+
 def _kernel_walk_np(rows, row_off, row_len, reads, read_len, pairs, segs, nvar,
-                    items=aligner.ITEMS_PER_BLOCK, max_words=aligner.MAX_BLOCK_WORDS):
-    """csrc/match_bits.cu in numpy, block by block of `aligner.work_table`:
-    per block five u32 planes over its chunk's words + ceil(Lr/32) (plane c
-    < 4: base c or wildcard; plane 4: wildcard; wildcard past the row's
-    end), its pairs' codes staged (and their reverse complements for nvar
-    6), then per (variant, word) the AND of funnel-shifted plane words over
-    the variant's bases: the first SERIAL stopping at 0, the rest only for
-    the words still live (the kernel's queue), and the last word masked to
-    W. Returns (the u32 bits, words that stopped before their last base);
-    a plane word read past the block's planes raises IndexError, a word
-    written twice or never fails."""
+                    items=aligner.ITEMS_PER_BLOCK, max_words=aligner.MAX_BLOCK_WORDS,
+                    limit=H100_LIMIT):
+    """csrc/match_bits.cu in numpy, block by block of `aligner.work_table`
+    (`limit` bytes of shared memory a block; the global route's blocks
+    walk the same way): per block five u32 planes over its chunk's words +
+    ceil(ls/32) (plane c < 4: base c or wildcard; plane 4: wildcard;
+    wildcard past the row's end; ls the segment's staged bases), the first
+    ls codes of its pairs staged (and of their reverse complements for
+    nvar 6), then per (variant, word) the AND of funnel-shifted plane words
+    over the variant's bases, cut to the staged ones: the first SERIAL
+    stopping at 0, the rest only for the words still live (the kernel's
+    queue), and the last word masked to W. Returns (the u32 bits, words
+    that stopped before their last base); a plane word read past the
+    block's planes raises IndexError, a block past its route's bytes, or a
+    word written twice or never, fails."""
     rows, row_off, row_len, reads, read_len, pairs = (
         np.asarray(a) for a in (rows, row_off, row_len, reads, read_len, pairs))
     Lr = reads.shape[1]
-    seg_tab, work, nws_max, pg_max = aligner.work_table(
-        np.asarray(segs, np.int64).reshape(-1, 5), nvar, Lr, items, max_words)
+    segs = np.asarray(segs, np.int64).reshape(-1, 5)
+    ls_seg = aligner.staged_bases(segs, Lr, read_len, pairs, row_len)
+    seg_tab, work, n_shared, smem, slice_bytes = aligner.work_table(
+        segs, nvar, ls_seg, items, max_words, limit)
+    assert smem <= limit
     sizes = seg_tab[:, 1].astype(np.int64) * nvar * seg_tab[:, 3] * seg_tab[:, 5]
     seg_out = np.concatenate([[0], np.cumsum(sizes)])
     out = np.zeros(seg_out[-1], np.uint32)
     written = np.zeros(seg_out[-1], np.int64)
     shifts = np.arange(32, dtype=np.uint64)
     comp = np.array([3, 2, 1, 0, 4])
+    nc = 2 if nvar == 6 else 1
     early = 0
-    for s, p, pair0, word0 in work.tolist():
-        pair_off, n_seg, row0, P, W, W32, PG, WC = seg_tab[s].tolist()
+    for b, (s, p, pair0, word0) in enumerate(work.tolist()):
+        pair_off, n_seg, row0, P, W, W32, PG, WC, ls = seg_tab[s].tolist()
         row = row0 + p
         n_p, nw = min(PG, n_seg - pair0), min(WC, W32 - word0)
-        nws = nw + -(-Lr // 32)
-        assert nws <= nws_max and n_p <= pg_max
+        nws = nw + -(-ls // 32)
+        assert 20 * nws + n_p * nc * ls <= (smem if b < n_shared else slice_bytes)
         x = word0 * 32 + np.arange(nws * 32)
         inside = x < row_len[row]
         c = np.where(inside, rows[row_off[row] + np.where(inside, x, 0)], 4)
@@ -80,14 +94,13 @@ def _kernel_walk_np(rows, row_off, row_len, reads, read_len, pairs, segs, nvar,
         planes = np.stack([(m.reshape(nws, 32).astype(np.uint64) << shifts).sum(1)
                            for m in preds])                      # [5, nws]
         rd = pairs[pair_off + pair0:pair_off + pair0 + n_p]
-        staged = [np.minimum(reads[rd], 4)]
+        staged = [np.minimum(reads[rd][:, :ls], 4)]
         if nvar == 6:
-            src = read_len[rd][:, None] - 1 - np.arange(Lr)[None, :]
+            src = read_len[rd][:, None] - 1 - np.arange(ls)[None, :]
             ok = (src >= 0) & (src < Lr)
-            staged.append(np.where(ok, comp[np.take_along_axis(
-                staged[0], np.clip(src, 0, Lr - 1), 1)], 4))
-        staged = np.concatenate([np.stack(staged, 1),
-                                 np.full((n_p, len(staged), 1), 4)], 2)  # + a pad column
+            staged.append(np.where(ok, comp[np.minimum(np.take_along_axis(
+                reads[rd], np.clip(src, 0, Lr - 1), 1), 4)], 4))
+        staged = np.stack(staged, 1)                             # [n_p, nc, ls]
         pl, v, wl = (a.reshape(-1) for a in np.meshgrid(
             np.arange(n_p), np.arange(nvar), np.arange(nw), indexing="ij"))
         length = read_len[rd][pl].astype(np.int64)
@@ -96,16 +109,17 @@ def _kernel_walk_np(rows, row_off, row_len, reads, read_len, pairs, segs, nvar,
             strand, kind = v // 3, v % 3
             skip = (kind == 1).astype(np.int64)
             length = length - (kind > 0)
+        lim = np.minimum(length, ls - skip)  # the bases the walk takes
         acc = np.where((length < 0) | (length > Lr), 0, 0xFFFFFFFF).astype(np.uint64)
         queued = None
-        for j in range(Lr):
+        for j in range(ls):
             if j < SERIAL:  # a thread alone, stopping at 0
-                live = (acc != 0) & (j < length)
+                live = (acc != 0) & (j < lim)
             else:  # the queued words, a warp each, no early exit
                 if queued is None:
-                    queued = (acc != 0) & (length > SERIAL)
+                    queued = (acc != 0) & (lim > SERIAL)
                     early += int(((acc == 0) & (length > 0)).sum())
-                live = queued & (j < length)
+                live = queued & (j < lim)
             if not live.any():
                 break
             code = staged[pl[live], strand[live], j + skip[live]]
@@ -398,20 +412,86 @@ def test_kernel_walk_batch_layouts(seed, layout):
 @pytest.mark.parametrize("nvar,Lr,W", [(1, 1000, 1), (1, 32, 1), (6, 160, 1500),
                                        (6, 4096, 40_000), (1, 200_000, 10)])
 def test_work_table_bounds_a_blocks_shared_memory(nvar, Lr, W):
-    """A block stages at most MAX_STAGED_BYTES of reads (or one pair) and
-    the planes of at most MAX_BLOCK_WORDS words + ceil(Lr/32), whatever the
-    items target, and the table covers every (row, pair, word) once."""
+    """A block stages at most MAX_STAGED_BYTES of codes (or one pair) and
+    the planes of at most MAX_BLOCK_WORDS words + ceil(ls/32), whatever the
+    items target; a segment whose block fits the H100's shared memory
+    takes the shared route, one that does not (ls = 200,000) the global
+    route with a slice that holds its block; and the table covers every
+    (row, pair, word) once."""
     n, P = 3000, 3
     segs = np.array([[0, n, 0, P, W]], np.int64)
+    nc = 2 if nvar == 6 else 1
     for items in (aligner.ITEMS_PER_BLOCK, 1 << 20):
-        seg_tab, work, nws, pg = aligner.work_table(segs, nvar, Lr, items,
-                                                    aligner.MAX_BLOCK_WORDS)
-        staged = pg * (2 if nvar == 6 else 1) * Lr
-        assert pg == 1 or staged <= aligner.MAX_STAGED_BYTES
-        assert nws <= aligner.MAX_BLOCK_WORDS + -(-Lr // 32)
+        seg_tab, work, n_shared, smem, slice_bytes = aligner.work_table(
+            segs, nvar, np.array([Lr]), items, aligner.MAX_BLOCK_WORDS, H100_LIMIT)
         PG, WC, W32 = int(seg_tab[0, 6]), int(seg_tab[0, 7]), int(seg_tab[0, 5])
+        assert PG == 1 or PG * nc * Lr <= aligner.MAX_STAGED_BYTES
+        assert WC <= aligner.MAX_BLOCK_WORDS and int(seg_tab[0, 8]) == Lr
+        nbytes = 20 * (WC + -(-Lr // 32)) + PG * nc * Lr
+        if Lr < 100_000:
+            assert n_shared == len(work) and nbytes == smem <= H100_LIMIT
+            assert slice_bytes == 0
+        else:
+            assert n_shared == 0 and smem == 0
+            assert H100_LIMIT < nbytes <= slice_bytes and slice_bytes % 16 == 0
         covered = sum(min(PG, n - p0) * min(WC, W32 - w0) for _s, _r, p0, w0 in work.tolist())
         assert covered == P * n * W32
+
+
+@pytest.mark.parametrize("long_reads", [(200_000,), (100_000, 200_000)])
+def test_long_read_blocks_fit_shared_memory(long_reads):
+    """Reads of 100-200 kb among 20-150 bp reads on rows of 300-1,500 bp:
+    each segment stages its own longest read's bases, cut to its longest
+    row + 1, so every block takes the shared route within the H100's
+    shared memory, and the segments without a long read keep their
+    short-read staging."""
+    args = synth.match_bits_batch_case(5, n_graphs=6, n_reads=40, long_reads=long_reads)
+    rows, row_off, row_len, reads, read_len, pairs, segs = args
+    assert reads.shape[1] >= max(long_reads)
+    ls = aligner.staged_bases(segs, reads.shape[1], read_len, pairs, row_len)
+    _tab, work, n_shared, smem, slice_bytes = aligner.work_table(
+        segs, 6, ls, aligner.ITEMS_PER_BLOCK, aligner.MAX_BLOCK_WORDS, H100_LIMIT)
+    assert n_shared == len(work) and 0 < smem <= H100_LIMIT and slice_bytes == 0
+    for (p0, n, r0, n_rows, _W), got in zip(segs.tolist(), ls.tolist()):
+        longest = int(read_len[pairs[p0:p0 + n]].max())
+        if longest > 150:
+            assert got == int(row_len[r0:r0 + n_rows].max()) + 1 < longest
+        else:
+            assert got == longest
+
+
+@pytest.mark.parametrize("limit", [H100_LIMIT, 4096])
+def test_long_read_batch_equals_jax(graph_stores, limit):
+    """A batch of 150 bp reads and one 5 kb read (an allele's tail, then
+    random bases) over every graph: `_match_volumes` (the plain batched
+    version on the CPU) equals the JAX `_batch_match_bits` below W, graph
+    by graph, and the kernel's loop walked in numpy with the long read's
+    staging cut to the rows' length + 1, on the shared route and (at a
+    4,096-byte limit) on the global route; the long read matches where
+    its allele's tail lies."""
+    port, ref, alleles = graph_stores
+    rng = np.random.default_rng(31)
+    seqs, _which, _starts = synth.sample_reads(rng, alleles, 12, lengths=(150,), n_frac=0.2)
+    tail = alleles[0][len(alleles[0]) - 120:]
+    long_seq = tail + bytes(rng.choice(list(b"ACGT"), 5000 - len(tail)).tolist())
+    reads = [FastqRead(id=b"@l%d" % i, seq=s, qual=b"I" * len(s))
+             for i, s in enumerate(seqs + [long_seq])]
+    ga = aligner.GraphAligner(copy.deepcopy(port), device="cpu")
+    ref_ga = ref_aligner.GraphAligner(ref)
+    packs = [(ga.pack(ga.store[g]), reads) for g in sorted(port)]
+    args = ga.match_batch_inputs(packs)
+    assert args[3].shape[1] == 5024
+    walk, _early = _kernel_walk_np(*args, nvar=6, limit=limit)
+    got = ga._match_volumes(packs)
+    off, long_hits = 0, 0
+    for (gp, rs), bits in zip(packs, got):
+        R, _six, P, W32 = bits.shape
+        want = ref_ga._batch_match_bits(ref_ga.pack(ref[gp.packed.graph_id]), rs)
+        np.testing.assert_array_equal(bits, _below_w(want, P, W32, gp.packed.codes.shape[1] + 1))
+        np.testing.assert_array_equal(walk[off:off + bits.size].reshape(bits.shape), bits)
+        off += bits.size
+        long_hits += int(np.count_nonzero(bits[-1]))
+    assert off == len(walk) and long_hits > 0
 
 
 def test_match_bits_batch_checks_its_inputs():

@@ -16,7 +16,7 @@ from groot_tpu.ops.pallas_sketch import khf_sketch_pallas
 from groot_tpu_torch.ops import nthash
 from groot_tpu_torch.ops.sketch import KHF_SKETCH, khf_sketch, sketch_reads_u64
 
-SHAPES = [(31, 20), (51, 30)]
+SHAPES = [(31, 20), (51, 30), (31, 128)]
 
 
 def _batch(seed, B, L, lo):
@@ -51,6 +51,18 @@ def test_khf_sketch_torch_matches_pallas_interpret(k, s):
     hi, lo = khf_sketch_pallas(codes, lens, k, s, interpret=True)
     expect = u64.to_np(np.asarray(hi), np.asarray(lo))
     assert (_sketch(codes, lens, k, s) == expect).all()
+
+
+@pytest.mark.parametrize("s", [65, 128, 256])
+def test_khf_sketch_wrapper_any_s_matches_pallas_interpret(s):
+    """The wrapper takes any s (the kernel runs more than 64 slots in
+    groups of at most 64): at s = 65, 128 and 256 its output equals the
+    Pallas kernel's in interpret mode, bit for bit."""
+    codes, lens = _batch(7, 8, 200, 40)
+    got = khf_sketch(torch.from_numpy(codes), torch.from_numpy(lens), 31, s)
+    hi, lo = khf_sketch_pallas(codes, lens, 31, s, interpret=True)
+    assert got.shape == (8, s)
+    assert (got.numpy().view(np.uint64) == u64.to_np(np.asarray(hi), np.asarray(lo))).all()
 
 
 @pytest.mark.parametrize("k,s", SHAPES)

@@ -37,14 +37,14 @@ REPORT_COV = 0.3
 LENGTHS = (31, 32, 60, 80, 100, 100, 120, 150, 150, 170, 192, 200)
 
 
-@pytest.fixture(scope="module")
-def data(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("pipe")
+def _data(tmp, s: int):
+    """The synthetic database indexed at k31 w100 and sketch size s by both
+    packages (port/, ref/) and ~200 reads of it: (tmp, the FASTQ)."""
     msa = str(tmp / "msa")
     alleles = synth.tiny_db(msa)
-    run_index(Info(kmer_size=K, sketch_size=S, window_size=W,
+    run_index(Info(kmer_size=K, sketch_size=s, window_size=W,
                    index_dir=str(tmp / "port")), msa, "cpu")
-    ref_run_index(RefInfo(kmer_size=K, sketch_size=S, window_size=W,
+    ref_run_index(RefInfo(kmer_size=K, sketch_size=s, window_size=W,
                        index_dir=str(tmp / "ref")), msa)
     reads, _which, _starts = synth.sample_reads(
         np.random.default_rng(5), alleles, 200, lengths=LENGTHS,
@@ -53,6 +53,18 @@ def data(tmp_path_factory):
     fq = str(tmp / "reads.fq")
     synth.write_fastq(reads, fq)
     return tmp, fq
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    return _data(tmp_path_factory.mktemp("pipe"), S)
+
+
+@pytest.fixture(scope="module")
+def data_s128(tmp_path_factory):
+    """The same database and reads at sketch size 128: past the 64 slots of
+    a khf_sketch warp's registers (the kernel runs slot groups there)."""
+    return _data(tmp_path_factory.mktemp("pipe128"), 128)
 
 
 def _bam_key_set(read_bam, path):
@@ -130,6 +142,24 @@ def test_run_index_matches_reference(data, route, tmp_path, monkeypatch):
      ("cascade", "cascade")],
 )
 def test_engine_matches_reference(data, port_engine, ref_engine):
+    _same_as_reference(data, port_engine, ref_engine)
+
+
+@pytest.mark.parametrize(
+    "port_engine,ref_engine",
+    [("device", "device"), ("hash", "hash"), ("host", "hash"),
+     ("cascade", "cascade")],
+)
+def test_engine_matches_reference_at_s128(data_s128, port_engine, ref_engine):
+    """Sketch size 128 (the reference's own verify drive uses 30; any s is a
+    setting users can pick): every engine equals the reference on all five
+    counts, as at s = 20."""
+    _same_as_reference(data_s128, port_engine, ref_engine)
+
+
+def _same_as_reference(data, port_engine, ref_engine):
+    """The port's `port_engine` run equals the reference's `ref_engine`
+    run: stats, node weights, BAM records, pruned paths, report rows."""
     tmp, fq = data
     got = _align("port", str(tmp / "port"), fq,
                  str(tmp / f"p-{port_engine}.bam"), port_engine)

@@ -143,7 +143,7 @@ def _tiles_np(lens, w: int, tw: int):
     return table[:n], table[n:]
 
 
-def _kernel_walk_np(codes, lens, k: int, s: int, w: int, tw: int):
+def _kernel_walk_np(codes, lens, k: int, s: int, w: int, tw: int, sg: int = 0):
     """The kernel's run starts, walked as it walks them: the tiles of the
     wrapper's tile table in order (tw windows of a row each, none for a row
     without a window), each with the previous tile's last window as a halo; per
@@ -151,7 +151,11 @@ def _kernel_walk_np(codes, lens, k: int, s: int, w: int, tw: int):
     minima, a change marked where a finished window differs from the one
     before it, windows at an m-block start compared over every slot; each
     tile's run starts ranked in order at the count of every tile before it
-    (what the look-back sums). Returns native.window_sketch's contract."""
+    (what the look-back sums). With sg < s the slots run in groups of sg,
+    each group's change marks and m-block start compares ORed into the
+    tile's, and each group's minima written to its slots of the run
+    starts. Returns native.window_sketch's contract."""
+    sg = sg or s
     R, L = codes.shape
     m = w - k + 1
     out_row, out_col, out_sk = [], [], []
@@ -166,30 +170,36 @@ def _kernel_walk_np(codes, lens, k: int, s: int, w: int, tw: int):
         a0, nwc = t0 - halo, nt + halo
         nk = nwc + m - 1
         row = np.minimum(codes[r, a0:a0 + nk + k - 1], 4)
-        h = nthash.multihash_np(_prefix_hashes_np(row, k, nk), k, s)  # [nk, s]
-        mins = np.empty((nwc, s), np.uint64)
+        h_all = nthash.multihash_np(_prefix_hashes_np(row, k, nk), k, s)  # [nk, s]
         diff = np.zeros(nwc, bool)
-        b0 = np.arange(0, nwc, m)
-        sv = np.full((len(b0), s), np.uint64(2**64 - 1))
-        for d in range(m - 1, -1, -1):  # suffix minima, all blocks at once
-            j = b0 + d
-            ok = j < nk
-            sv[ok] = np.minimum(sv[ok], h[j[ok]])
-            ok &= j < nwc
-            mins[j[ok]] = sv[ok]
-        pv = np.full_like(sv, np.uint64(2**64 - 1))
-        prev = sv.copy()
-        for d in range(1, m):  # prefix minima of the next block
-            i = b0 + d
-            ok = i < nwc
-            pv[ok] = np.minimum(pv[ok], h[i[ok] + m - 1])
-            v = np.minimum(mins[i[ok]], pv[ok])
-            mins[i[ok]] = v
-            diff[i[ok]] |= (v != prev[ok]).any(axis=1)
-            prev[ok] = v
         i = np.arange(halo, nwc)
-        edge = (i > 0) & (i % m == 0)
-        edge[edge] = (mins[i[edge]] != mins[i[edge] - 1]).any(axis=1)
+        edge = np.zeros(len(i), bool)
+        groups = []
+        for g0 in range(0, s, sg):
+            h = h_all[:, g0:g0 + sg]
+            mins = np.empty((nwc, h.shape[1]), np.uint64)
+            b0 = np.arange(0, nwc, m)
+            sv = np.full((len(b0), h.shape[1]), np.uint64(2**64 - 1))
+            for d in range(m - 1, -1, -1):  # suffix minima, all blocks at once
+                j = b0 + d
+                ok = j < nk
+                sv[ok] = np.minimum(sv[ok], h[j[ok]])
+                ok &= j < nwc
+                mins[j[ok]] = sv[ok]
+            pv = np.full_like(sv, np.uint64(2**64 - 1))
+            prev = sv.copy()
+            for d in range(1, m):  # prefix minima of the next block
+                ii = b0 + d
+                ok = ii < nwc
+                pv[ok] = np.minimum(pv[ok], h[ii[ok] + m - 1])
+                v = np.minimum(mins[ii[ok]], pv[ok])
+                mins[ii[ok]] = v
+                diff[ii[ok]] |= (v != prev[ok]).any(axis=1)
+                prev[ok] = v
+            at = (i > 0) & (i % m == 0)
+            edge[at] |= (mins[i[at]] != mins[i[at] - 1]).any(axis=1)
+            groups.append(mins)
+        mins = np.concatenate(groups, axis=1)
         flag = (a0 + i == 0) | diff[i] | edge
         out_row.append(np.full(int(flag.sum()), r, np.int32))
         out_col.append((a0 + i[flag]).astype(np.int32))
@@ -217,18 +227,21 @@ def _edge_rows(rng, w: int, tw: int, L: int = 2700):
             np.concatenate([np.array(lens, np.int32), rep_lens]))
 
 
-@pytest.mark.parametrize("k,s,w,tw", [
-    (31, 20, 150, 512), (31, 16, 100, 512), (7, 16, 40, 512),
-    (31, 20, 31, 512), (7, 3, 7, 512), (15, 5, 47, 64), (31, 20, 150, 32),
-    (7, 16, 40, 100),
+@pytest.mark.parametrize("k,s,w,tw,sg", [
+    (31, 20, 150, 512, 0), (31, 16, 100, 512, 0), (7, 16, 40, 512, 0),
+    (31, 20, 31, 512, 0), (7, 3, 7, 512, 0), (15, 5, 47, 64, 0), (31, 20, 150, 32, 0),
+    (7, 16, 40, 100, 0), (31, 20, 150, 512, 7), (7, 16, 40, 64, 1),
+    (31, 128, 150, 512, 25),
 ])
-def test_kernel_walk_matches_plain_jax_and_native(k, s, w, tw):
+def test_kernel_walk_matches_plain_jax_and_native(k, s, w, tw, sg):
     """m = 1 (w = k), m not a power of two (120, 70, 34, 33), the kernel's
     widest tile and narrower ones (more tile edges), rows at tile edges
-    +- 1, rows of exactly w and w - 1 and the _repeat_rows rows."""
+    +- 1, rows of exactly w and w - 1 and the _repeat_rows rows; slot
+    groups (sg < s: the kernel's route where no tile holds every slot's
+    minima), down to one slot a group, and s = 128 in groups of 25."""
     rng = np.random.default_rng(k * 1000 + w)
     codes, lens = _edge_rows(rng, w, tw)
-    got = _kernel_walk_np(codes, lens, k, s, w, tw)
+    got = _kernel_walk_np(codes, lens, k, s, w, tw, sg)
     assert len(got[0]) < int((lens - w + 1).clip(min=0).sum())  # runs exist
     want = native.window_sketch(codes, lens.astype(np.int64), k, s, w)
     plain = pw.window_run_starts_torch(torch.from_numpy(codes),
