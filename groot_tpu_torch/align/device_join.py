@@ -44,6 +44,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .._build import I, I64, Kernel, P, U32, ptr
 from ..io import native as _native
 from ..ops.nthash import RC_CODE_NP
@@ -356,9 +357,9 @@ class DeviceJoinAligner(HashAligner):
         self._dev = None
         self._dev_copies: Dict[str, dict] = {}
         self._d1 = 208
-        # per-stage accounting read by benchmarks (AlignStats.stage_times);
-        # updated
-        # from the main thread and the collect workers, always under the lock
+        # per-stage seconds and counts (AlignStats.stage_times, read by the
+        # benchmark), on time.perf_counter; updated from the main thread,
+        # the ingest workers and the collect workers, always under the lock
         self.stage_times: Dict[str, float] = collections.defaultdict(float)
         self._st_lock = threading.Lock()
 
@@ -706,30 +707,28 @@ class DeviceJoinAligner(HashAligner):
             sub_codes, sub_len, rpow32, rinv32, rows_t, sx = (
                 self.phase_a_inputs(batch, st)
             )
-            self._count(
-                "h2d_bytes",
-                sub_codes.numel() + 4 * sub_len.numel() + 4 * rows_t.numel(),
-            )
             PHf, PHr, AHf, AHr = read_hashes(
                 sub_codes, sub_len, rpow32, rinv32, sx["k"], sx["WPH"]
             )
             out = self.scan_rows((PHf, PHr, AHf, AHr), rows_t, sx)
             calls.append((st["r_pair"], st["r_prow"], st["r_base"], out))
         st["calls"] = calls
+        st["batch"] = getattr(batch, "seq", None)
         return [st]
 
     def fetch_pairs(self, handles) -> None:
         """D2H: materialise every seed-scan output as numpy (the copy
         synchronises with the launches on the stream). Idempotent."""
-        if not handles:
+        if not handles or "fetched" in handles[0]:
             return
-        t0 = time.time()
         st = handles[0]
-        st["calls"] = [
-            (rp, pr, rb, out.cpu().numpy() if torch.is_tensor(out) else out)
-            for rp, pr, rb, out in st["calls"]
-        ]
-        self._count("drain_s", time.time() - t0)
+        with obs.Timer("phase_a.fetch", st["batch"]) as tm:
+            st["calls"] = [
+                (rp, pr, rb, out.cpu().numpy() if torch.is_tensor(out) else out)
+                for rp, pr, rb, out in st["calls"]
+            ]
+        st["fetched"] = True
+        self._count("drain_s", tm.s)
 
     def collect_pairs(
         self, handles, batch, rows, wins, kc_read, acc, bam_writer, stats
@@ -754,7 +753,7 @@ class DeviceJoinAligner(HashAligner):
         codes = np.asarray(batch.codes)
         lengths = np.asarray(batch.lengths).astype(np.int64)
 
-        t0 = time.time()
+        tm = obs.Timer("tail.collect", st["batch"], cpu=True)
         # ---- drain A: per-(pair, ori) reductions over flat rows --------
         j1 = np.full((n_pairs, 2), INF32, np.int64)
         s3 = np.zeros((n_pairs, 2), bool)
@@ -792,7 +791,7 @@ class DeviceJoinAligner(HashAligner):
             s3[up, 1] |= (orf & 4) > 0
             s4[up, 1] |= (orf & 8) > 0
         s1 = j1 < INF32
-        drainA = time.time() - t0
+        drainA = time.perf_counter_ns() - tm.t0
 
         # ---- stage 2 ----------------------------------------------------
         # The reference's priority makes stage 2 relevant only for pairs
@@ -812,7 +811,6 @@ class DeviceJoinAligner(HashAligner):
         need_f = window_b & ~s1[:, 0]
         need_r = window_b & ~s1[:, 1] & ~(s1 | s3 | s4)[:, 0]
         fb_extra = np.zeros(n_combos, dtype=bool)
-        n_needb = 0
         s2 = np.zeros((n_pairs, 2), bool)
         best2 = np.full((n_pairs, 2), BIG2, np.int64)
         s2_join: List[Tuple[np.ndarray, ...]] = []  # per-ori join rows
@@ -877,7 +875,6 @@ class DeviceJoinAligner(HashAligner):
                         self.path_len, self.ph_start, self.ph, self.rinv,
                     )
                     if res is not None:
-                        self._count("s2_match", len(res[0]))
                         return res
                 lo = np.searchsorted(A, v_anchor)
                 hi = np.searchsorted(A, v_anchor, side="right")
@@ -886,7 +883,6 @@ class DeviceJoinAligner(HashAligner):
                 if total == 0:
                     e = np.empty(0, np.int64)
                     return e, e, e
-                self._count("s2_cand", total)
                 owner = np.repeat(np.arange(len(lo)), cnt)
                 starts = np.concatenate(([0], np.cumsum(cnt[:-1])))
                 ai = lo[owner] + (np.arange(total) - starts[owner])
@@ -902,7 +898,6 @@ class DeviceJoinAligner(HashAligner):
                         - self.ph[s + pos]
                     ) * self.rinv[pos]
                 ok = interior & (hint == vfull[owner])
-                self._count("s2_match", int(ok.sum()))
                 return owner[ok], row[ok], pos[ok]
 
             def overhang_rows(tp, cum):
@@ -937,7 +932,6 @@ class DeviceJoinAligner(HashAligner):
                 okq = av[None, :] <= (lb2 - 1)[:, None]
                 qi, _aj = np.nonzero(okq)
                 flatk = keys[okq]
-                self._count("s2_over_probe", len(flatk))
                 bidx = (flatk & self._tail_bloom_mask).astype(np.int64)
                 alive0 = np.flatnonzero(
                     (self._tail_bloom[bidx >> 3] >> (bidx & 7)) & 1
@@ -946,7 +940,6 @@ class DeviceJoinAligner(HashAligner):
                     return E, E, E
                 flatk = flatk[alive0]
                 qi = qi[alive0]
-                self._count("s2_over_srch", len(flatk))
                 lo = np.searchsorted(T, flatk)
                 hi = np.searchsorted(T, flatk, side="right")
                 cnt = (hi - lo).astype(np.int64)
@@ -963,7 +956,6 @@ class DeviceJoinAligner(HashAligner):
                 uptr = np.concatenate(([0], np.cumsum(ucnt)))
                 fan = ucnt[u_hit]
                 tot = int(fan.sum())
-                self._count("s2_over_rows", tot)
                 hid = np.repeat(np.arange(tot0), fan)
                 st4 = np.concatenate(([0], np.cumsum(fan[:-1])))
                 jj = np.arange(tot) - st4[hid]
@@ -983,10 +975,7 @@ class DeviceJoinAligner(HashAligner):
                 ip = np.flatnonzero(need_o & in_cand)
                 if len(ip) == 0:
                     continue
-                tq2 = time.time()
                 m_owner, m_row, m_pos = enum_matches(va, vfl)
-                self._count("s2_enum_s", time.time() - tq2)
-                tq2 = time.time()
                 # interior candidates fanned out per pair (near-node
                 # pruned: a hit needs a node starting within NS of it)
                 if len(m_owner):
@@ -1018,23 +1007,18 @@ class DeviceJoinAligner(HashAligner):
                     pm_pair = np.empty(0, np.int64)
                     e_row = np.empty(0, np.int64)
                     e_pos = np.empty(0, np.int64)
-                self._count("s2_int_s", time.time() - tq2)
                 # dead-end overhang candidates (near-node pruned)
-                tq4 = time.time()
                 tp = ip[tailrisk[ip]]
                 if len(tp):
                     o_pair, o_row, o_pos = overhang_rows(tp, cum)
                 else:
                     o_pair = o_row = o_pos = np.empty(0, np.int64)
-                self._count("s2_over_s", time.time() - tq4)
                 n_all = len(pm_pair) + len(o_pair)
                 if n_all == 0:
                     continue
-                tq5 = time.time()
                 all_pair = np.concatenate((pm_pair, o_pair))
                 all_row = np.concatenate((e_row, o_row))
                 all_pos = np.concatenate((e_pos, o_pos))
-                self._count("s2_join_rows", n_all)
                 order = np.argsort(all_pair, kind="stable")
                 all_pair = all_pair[order]
                 all_row = all_row[order]
@@ -1113,11 +1097,7 @@ class DeviceJoinAligner(HashAligner):
                             >= (r + 1) * (NODE_SHUFFLES + 1)
                         ]
                         r += 1
-                self._count("s2_dec_s", time.time() - tq5)
             s2 = best2 < BIG2
-            n_needb = int(((need_f | need_r) & tailrisk).sum())
-            self._count("s2_tail_pairs", n_needb)
-            self._count("s2_inline_pairs", int((need_f | need_r).sum()))
 
         # ---- combine per pair ------------------------------------------
         # (stage 2 was resolved inline above, so s2 here is live and exact)
@@ -1220,7 +1200,7 @@ class DeviceJoinAligner(HashAligner):
         combo_cs = (combo_stage == 3).astype(np.int16)
         combo_ce = (combo_stage == 4).astype(np.int16)
 
-        t1 = time.time()
+        t1 = time.perf_counter_ns()
 
         # ---- byte verification (32-bit collision guard) -----------------
         if len(id_combo):
@@ -1266,7 +1246,7 @@ class DeviceJoinAligner(HashAligner):
                 combo_ori, combo_cs, combo_ce, bam_writer, stats,
             )
 
-        t2 = time.time()
+        t2 = time.perf_counter_ns()
         # ---- fallback combos (wildcard graphs, long/short reads,
         # stage-2-possible pairs, verify failures): re-run through the
         # inherited HOST hash-join cascade — the fb subset of the sorted
@@ -1293,13 +1273,14 @@ class DeviceJoinAligner(HashAligner):
                 kc_read, acc, bam_writer, fb_stats,
             )
             stats.alignment_count += fb_stats.alignment_count
-        t3 = time.time()
+        tm.stop()
         with self._st_lock:
             stt = self.stage_times
-            stt["reduce_s"] += t1 - t0
-            stt["drainA_s"] += drainA
-            stt["verify_emit_s"] += t2 - t1
-            stt["residue_s"] += t3 - t2
+            stt["reduce_s"] += (t1 - tm.t0) / 1e9
+            stt["drainA_s"] += drainA / 1e9
+            stt["verify_emit_s"] += (t2 - t1) / 1e9
+            stt["residue_s"] += (tm.t1 - t2) / 1e9
+            stt["tail_cpu_s"] += tm.cpu_s
             stt["verify_fb_combos"] += int(fb_extra.sum())
             stt["fb_combos"] += nfb
             stt["combos"] += n_combos

@@ -6,7 +6,14 @@ Counterpart of groot_tpu/cli.py with the same commands and flags, plus
 window sketch of `index`, the read sketch and phase A of `align`, the EM of
 `haplotype`). `--device cuda` with no usable card raises; `cpu` runs their
 plain PyTorch versions, and the native host runtime where the reference
-runs it. `--profiling` writes a torch.profiler trace to ./groot-profile.
+runs it. `--profiling` writes a torch.profiler trace to ./groot-profile,
+and beside it groot-spans.json: the align pipeline's spans (`obs`) as
+Chrome-trace `X` events, timed in microseconds of time.perf_counter, and one
+`groot.marker` event whose args pair that clock (`perf_counter_ns`) with
+the profiler's (`profiler_us`, as torch.profiler's events() read it) at the
+instant of the `groot.marker` annotation in the torch trace. Shifting every
+span by the difference between the two `groot.marker` timestamps puts it on
+the torch trace's timeline.
 
 Run as `python -m groot_tpu_torch.cli ...`.
 """
@@ -16,6 +23,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import glob
+import json
 import logging
 import os
 import sys
@@ -25,6 +33,7 @@ from typing import List
 
 import numpy as np
 
+from . import obs
 from .version import get_version
 
 log = logging.getLogger("groot")
@@ -43,22 +52,59 @@ def _setup_logging(log_file: str) -> None:
 
 
 PROFILE_DIR = "./groot-profile"
+MARKER = "groot.marker"
 
 
+@contextlib.contextmanager
 def _profiled(args):
     """A torch.profiler trace of the command into PROFILE_DIR when
-    --profiling is set (the reference writes a jax.profiler trace there)."""
+    --profiling is set (the reference writes a jax.profiler trace there),
+    and the spans the program recorded meanwhile in groot-spans.json."""
     if not args.profiling:
-        return contextlib.nullcontext()
+        yield
+        return
     import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import (
+        ProfilerActivity, profile, record_function, tensorboard_trace_handler,
+    )
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    return profile(
+    prof = profile(
         activities=activities, on_trace_ready=tensorboard_trace_handler(PROFILE_DIR)
     )
+    obs.start()
+    try:
+        with prof:
+            with record_function(MARKER):
+                marker_ns = time.perf_counter_ns()
+            yield
+    finally:
+        spans = obs.stop()
+    marker = next((e for e in prof.events() if e.name == MARKER), None)
+    _write_spans(
+        os.path.join(PROFILE_DIR, "groot-spans.json"), spans, marker_ns,
+        None if marker is None else marker.time_range.start,
+    )
+
+
+def _write_spans(path, spans, marker_ns, profiler_us) -> None:
+    """obs spans as Chrome-trace X events on perf_counter microseconds,
+    with the marker event that ties them to the profiler's clock."""
+    pid = os.getpid()
+    events = [{
+        "name": MARKER, "ph": "X", "ts": marker_ns / 1e3, "dur": 0, "pid": pid,
+        "tid": 0, "args": {"perf_counter_ns": marker_ns, "profiler_us": profiler_us},
+    }]
+    for name, batch, tid, t0, t1, cpu in spans:
+        events.append({
+            "name": name, "ph": "X", "ts": t0 / 1e3, "dur": (t1 - t0) / 1e3,
+            "pid": pid, "tid": tid, "args": {"batch": batch, "cpu_us": cpu / 1e3},
+        })
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump({"traceEvents": events}, fh)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -41,6 +41,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .._build import native_runtime, resolve_device
 from ..align.aligner import GraphAligner
 from ..align.batch_host import WeightAccumulator, WindowTables, sort_hits
@@ -396,7 +397,7 @@ class AlignStats:
     alignment_count: int = 0
     total_kmers: int = 0
     # the device engine's per-stage seconds and counts (submit_s, drain_s,
-    # h2d_bytes, reduce_s, ...), copied from its aligner at the end
+    # reduce_s, wait_tail_s, ...), copied from its aligner at the end
     stage_times: Dict[str, float] = field(default_factory=dict)
 
 
@@ -462,110 +463,118 @@ def run_align(
     device="cuda",
 ) -> AlignStats:
     """ReadMapper equivalent: map/weight/align every read. Returns stats."""
-    from ..hostmem import tune as _malloc_tune
+    with obs.span("align.run"):
+        from ..hostmem import tune as _malloc_tune
 
-    _malloc_tune()  # keep batch buffers on the heap (see hostmem.py)
-    native_runtime()
-    dev = resolve_device(device)
-    engine = select_engine()
-    stats = AlignStats()
-    k = info.kmer_size
-    s = info.sketch_size
-    t = info.containment_threshold
-    no_align = info.sketch.no_exact_align
+        setup = obs.Timer("align.setup")
+        _malloc_tune()  # keep batch buffers on the heap (see hostmem.py)
+        native_runtime()
+        dev = resolve_device(device)
+        engine = select_engine()
+        stats = AlignStats()
+        k = info.kmer_size
+        s = info.sketch_size
+        t = info.containment_threshold
+        no_align = info.sketch.no_exact_align
 
-    aligner = None
-    if no_align:
-        tables = WindowTables(info.db, info.store)
-    else:
-        references = bamio.build_references(info.store)
-        aligner, tables = _make_aligner(engine, info, dev, references)
-    acc = WeightAccumulator(tables) if tables is not None else None
-    # the hash engine sketches with the native runtime (slot-0
-    # prescreened), as the reference does; the others sketch on `device`.
-    # GROOT_DEVICE_QUERY=1 queries on `device` whatever the engine.
-    sketch_dev = None if engine == "hash" else dev
+        aligner = None
+        if no_align:
+            tables = WindowTables(info.db, info.store)
+        else:
+            references = bamio.build_references(info.store)
+            aligner, tables = _make_aligner(engine, info, dev, references)
+        acc = WeightAccumulator(tables) if tables is not None else None
+        # the hash engine sketches with the native runtime (slot-0
+        # prescreened), as the reference does; the others sketch on
+        # `device`. GROOT_DEVICE_QUERY=1 queries on `device` whatever the
+        # engine.
+        sketch_dev = None if engine == "hash" else dev
 
-    # fast path: plain/gzip FASTQ files through the native scanner; FASTA or
-    # STDIN fall back to the Python streamer
-    use_native = (
-        fastq
-        and not info.sketch.fasta
-        and all(not f.endswith((".fasta", ".fa", ".fna")) for f in fastq)
-    )
-    if use_native:
-        batches = batch_reads_native(fastq, batch_size)
-    else:
-        batches = batch_reads(
-            stream_fastq(fastq, fasta=info.sketch.fasta), batch_size
+        # fast path: plain/gzip FASTQ files through the native scanner;
+        # FASTA or STDIN fall back to the Python streamer
+        use_native = (
+            fastq
+            and not info.sketch.fasta
+            and all(not f.endswith((".fasta", ".fa", ".fna")) for f in fastq)
         )
-    is_async = getattr(aligner, "prefers_async", False) and not no_align
-    if is_async:
-        # device engine: sketch + query + hit sort run on the ingest
-        # workers, so the main thread only submits and fetches
-        batches = _map_hits(
-            batches, info, k, s, t, tables, batch_size, sketch_dev, dev
+        if use_native:
+            batches = batch_reads_native(fastq, batch_size)
+        else:
+            batches = batch_reads(
+                stream_fastq(fastq, fasta=info.sketch.fasta), batch_size
+            )
+        is_async = getattr(aligner, "prefers_async", False) and not no_align
+        if is_async:
+            # device engine: sketch + query + hit sort run on the ingest
+            # workers, so the main thread only submits and fetches
+            batches = _map_hits(
+                batches, info, k, s, t, tables, batch_size, sketch_dev, dev,
+                aligner._count,
+            )
+        batches = _prefetch(batches, depth=2)
+
+        import time as _time
+
+        t_start = _time.time()
+        # pooled execution needs the native emit path (the sink collects
+        # raw record bytes); without the runtime the numpy write_groups
+        # route writes through the real BamWriter -> stay sequential
+        use_pool = (
+            not no_align
+            and hasattr(aligner, "process_batch")
+            and not is_async
+            and native.available()
         )
-    batches = _prefetch(batches, depth=2)
+        setup.stop()
+        if is_async:
+            aligner._count("aligner_setup_s", setup.s)
+            raw_count, length_total = _run_align_device(
+                info, batches, aligner, bam_writer, stats, k, s, t, tables,
+                batch_size, t_start,
+            )
+        elif use_pool:
+            raw_count, length_total = _run_align_pooled(
+                info, batches, aligner, bam_writer, stats, k, s, t, tables,
+                batch_size, t_start, dev,
+            )
+        else:
+            raw_count, length_total = _run_align_sequential(
+                info, batches, aligner, bam_writer, stats, k, s, t, tables,
+                acc, batch_size, t_start, sketch_dev, dev,
+            )
 
-    import time as _time
+        if acc is not None:
+            # apply deferred increment_subpath replay
+            with obs.span("align.flush"):
+                acc.flush(info.store)
+        stats.stage_times = dict(getattr(aligner, "stage_times", {}))
 
-    t_start = _time.time()
-    # pooled execution needs the native emit path (the sink collects raw
-    # record bytes); without the runtime the numpy write_groups route
-    # writes through the real BamWriter -> stay sequential
-    use_pool = (
-        not no_align
-        and hasattr(aligner, "process_batch")
-        and not is_async
-        and native.available()
-    )
-    if is_async:
-        raw_count, length_total = _run_align_device(
-            info, batches, aligner, bam_writer, stats, k, s, t, tables,
-            batch_size, t_start,
+        if raw_count == 0:
+            raise ValueError("no fastq reads received")
+        log.info("\tnumber of reads received from input: %d", raw_count)
+        log.info("\tmean read length: %.0f", length_total / raw_count)
+        if stats.received == 0:
+            raise ValueError("no reads passed quality-based trimming")
+        log.info("\tnumber of reads sketched: %d", stats.received)
+
+        if stats.mapped == 0:
+            log.info("no reads could be mapped to the reference graphs")
+            info.store = {}
+            return stats
+        log.info("\ttotal number of unmapped reads: %d", stats.received - stats.mapped)
+        log.info("\ttotal number of mapped reads: %d", stats.mapped)
+        log.info("\t\tmapped to one graph: %d", stats.mapped - stats.multimapped)
+        log.info("\t\tmapped to multiple graphs: %d", stats.multimapped)
+        log.info("\ttotal number of exact alignments: %d", stats.alignment_count)
+
+        for g in info.store.values():
+            stats.total_kmers += int(g.kmer_total)
+        log.info("processing graphs...")
+        log.info(
+            "\ttotal number of k-mers projected onto graphs: %d", stats.total_kmers
         )
-    elif use_pool:
-        raw_count, length_total = _run_align_pooled(
-            info, batches, aligner, bam_writer, stats, k, s, t, tables,
-            batch_size, t_start, dev,
-        )
-    else:
-        raw_count, length_total = _run_align_sequential(
-            info, batches, aligner, bam_writer, stats, k, s, t, tables,
-            acc, batch_size, t_start, sketch_dev, dev,
-        )
-
-    if acc is not None:
-        acc.flush(info.store)  # apply deferred increment_subpath replay
-    stats.stage_times = dict(getattr(aligner, "stage_times", {}))
-
-    if raw_count == 0:
-        raise ValueError("no fastq reads received")
-    log.info("\tnumber of reads received from input: %d", raw_count)
-    log.info("\tmean read length: %.0f", length_total / raw_count)
-    if stats.received == 0:
-        raise ValueError("no reads passed quality-based trimming")
-    log.info("\tnumber of reads sketched: %d", stats.received)
-
-    if stats.mapped == 0:
-        log.info("no reads could be mapped to the reference graphs")
-        info.store = {}
+        info.haplotype.total_kmers = stats.total_kmers
         return stats
-    log.info("\ttotal number of unmapped reads: %d", stats.received - stats.mapped)
-    log.info("\ttotal number of mapped reads: %d", stats.mapped)
-    log.info("\t\tmapped to one graph: %d", stats.mapped - stats.multimapped)
-    log.info("\t\tmapped to multiple graphs: %d", stats.multimapped)
-    log.info("\ttotal number of exact alignments: %d", stats.alignment_count)
-
-    for g in info.store.values():
-        stats.total_kmers += int(g.kmer_total)
-    log.info("processing graphs...")
-    log.info(
-        "\ttotal number of k-mers projected onto graphs: %d", stats.total_kmers
-    )
-    info.haplotype.total_kmers = stats.total_kmers
-    return stats
 
 
 def _workers(info) -> int:
@@ -618,10 +627,13 @@ def _run_align_device(
 
     def replay_one():
         nonlocal done_count
-        fut, n_valid = futs.popleft()
-        st, sink = fut.result()
-        if sink is not None:
-            sink.replay(bam_writer)
+        fut, n_valid, seq = futs.popleft()
+        with obs.Timer("launch.wait_tail", seq) as tm:
+            st, sink = fut.result()
+        aligner._count("wait_tail_s", tm.s)
+        with obs.span("launch.replay", seq):
+            if sink is not None:
+                sink.replay(bam_writer)
         stats.alignment_count += st.alignment_count
         done_count += n_valid
         log.info(
@@ -637,13 +649,21 @@ def _run_align_device(
             (
                 pool.submit(post, batch, handles, rows, wins, kc_read),
                 batch.n_valid,
+                batch.seq,
             )
         )
         while len(futs) > workers + 1:
             replay_one()
 
+    batches = iter(batches)
     try:
-        for batch in batches:
+        while True:
+            tm = obs.Timer("launch.wait_ingest")
+            batch = next(batches, None)
+            tm.batch = getattr(batch, "seq", None)
+            aligner._count("wait_ingest_s", tm.stop().s)
+            if batch is None:
+                break
             raw_count += batch.n_valid
             length_total += int(batch.lengths[: batch.n_valid].sum())
             pre = getattr(batch, "_hits", None)
@@ -666,9 +686,9 @@ def _run_align_device(
             kc_read = (
                 (batch.lengths - k + 1).astype(np.int32).astype(np.float64)
             )
-            t0 = _time.time()
-            handles = aligner.submit_pairs(batch, rows, wins, combo_start)
-            aligner._count("submit_s", _time.time() - t0)
+            with obs.Timer("phase_a.submit", batch.seq) as tm:
+                handles = aligner.submit_pairs(batch, rows, wins, combo_start)
+            aligner._count("submit_s", tm.s)
             pend.append((batch, handles, rows, wins, kc_read))
             while len(pend) > depth:
                 drain_oldest()
@@ -681,7 +701,8 @@ def _run_align_device(
     finally:
         pool.shutdown(wait=True)
     for acc in accs.values():
-        acc.flush(info.store)
+        with obs.span("align.flush"):
+            acc.flush(info.store)
     return raw_count, length_total
 
 
@@ -881,31 +902,36 @@ def _compute_hits(info, batch, kmer_counts, k, s, t, tables, sketch_dev,
 
 
 def _map_hits(batches, info, k, s, t, tables, batch_size, sketch_dev,
-              query_dev):
-    """Ingest-side stage for the async device engine: pad each batch to
-    the pipeline shape and attach its hit list, so the main thread only
-    runs the cascade submit/fetch. The per-batch prep (pad + sketch + LSH
-    query + hit sort) runs on a small ordered worker pool; the sketch
-    kernel launches from those threads on the current stream."""
+              query_dev, count):
+    """Ingest-side stage for the async device engine: number each batch
+    (`seq`, the id its spans carry), pad it to the pipeline shape and
+    attach its hit list, so the main thread only runs the cascade
+    submit/fetch. The per-batch prep (pad + sketch + LSH query + hit sort)
+    runs on a small ordered worker pool, its seconds counted as `prep_s`
+    through `count`; the sketch kernel launches from those threads on the
+    current stream."""
     import collections
     from concurrent.futures import ThreadPoolExecutor
 
     def prep(batch):
-        if batch.n < batch_size:
-            _pad_batch(batch, batch_size, k)
-        kmer_counts = (batch.lengths - k + 1).astype(np.int32)
-        if not (batch.lengths[: batch.n_valid] < k).any():
-            batch._hits = _compute_hits(
-                info, batch, kmer_counts, k, s, t, tables, sketch_dev,
-                query_dev,
-            )
+        with obs.Timer("ingest.prep", batch.seq) as tm:
+            if batch.n < batch_size:
+                _pad_batch(batch, batch_size, k)
+            kmer_counts = (batch.lengths - k + 1).astype(np.int32)
+            if not (batch.lengths[: batch.n_valid] < k).any():
+                batch._hits = _compute_hits(
+                    info, batch, kmer_counts, k, s, t, tables, sketch_dev,
+                    query_dev,
+                )
+        count("prep_s", tm.s)
         return batch
 
     workers = min(os.cpu_count() or 2, 2)
     pool = ThreadPoolExecutor(max_workers=workers)
     futs: "collections.deque" = collections.deque()
     try:
-        for batch in batches:
+        for seq, batch in enumerate(batches):
+            batch.seq = seq
             futs.append(pool.submit(prep, batch))
             while len(futs) > workers:
                 yield futs.popleft().result()

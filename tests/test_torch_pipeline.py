@@ -205,7 +205,10 @@ def test_host_engine_one_match_volume_call_per_batch(data, monkeypatch):
 def test_device_engine_stage_times(data):
     """The device engine's stage_times split its host tail: drain A, a part
     of reduce_s, has its own key, and the combos that verification sends to
-    the host cascade are counted under that name."""
+    the host cascade are counted under that name. The launch thread's
+    waits, the ingest prep, the aligner's set-up and the host tail's CPU
+    seconds are counted too; the tail is never more on a CPU than its wall
+    time, and no unread counter is left."""
     tmp, fq = data
     stats = _align("port", str(tmp / "port"), fq, str(tmp / "p-times.bam"),
                    "device")[0]
@@ -213,6 +216,13 @@ def test_device_engine_stage_times(data):
     assert 0 <= st["drainA_s"] <= st["reduce_s"]
     assert st["verify_fb_combos"] == 0 and "stage2_combos" not in st
     assert st["combos"] > 0
+    for key in ("wait_ingest_s", "wait_tail_s", "tail_cpu_s", "prep_s",
+                "aligner_setup_s"):
+        assert st[key] >= 0, key
+    assert st["prep_s"] > 0 and st["aligner_setup_s"] > 0
+    tail = st["reduce_s"] + st["verify_emit_s"] + st["residue_s"]
+    assert st["tail_cpu_s"] <= tail + 1e-3
+    assert not [k for k in st if k.startswith("s2_") or k == "h2d_bytes"]
 
 
 def test_match_bits_leaves_tf32_flag_as_it_was(monkeypatch):
