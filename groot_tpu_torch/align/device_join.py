@@ -39,6 +39,7 @@ import collections
 import logging
 import threading
 import time
+import zlib
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -61,6 +62,13 @@ KA = MAXL        # overhang tail lanes: EVERY overhang (avail < lb <= MAXL)
                  # is one certified path-tail-hash compare
 NONE8 = 255      # u8 sentinel for "no match" in packed outputs
 M32 = 0xFFFFFFFF
+INF40 = np.int64(1) << 40  # "no terminal-free path end" in _w_tail_min
+TAIL_BLOOM_BITS = 27       # the tail hash's low bits in its presence bitmap
+# per overhang length a in [0, MAXL]: the mix of the path-tail hash keys
+TAIL_MIX = np.array(
+    [_splitmix64(a ^ 0x6A09E667F3BCC909) for a in range(MAXL + 1)],
+    dtype=np.uint64,
+)
 
 READ_HASH = Kernel(
     "read_hash", "groot_read_hash",
@@ -90,6 +98,17 @@ def _offsets(lcap: int, k: int):
     is REQUIRED for a row with variant length lbv iff o < lbv - k; the
     ladder plus the per-row tail anchor at lbv - k certifies read[0:lbv]."""
     return tuple(range(0, max(min(lcap, MAXL) - k, 1), k))
+
+
+def window_tail_min(node_tail, cn_ptr, cn_grow) -> np.ndarray:
+    """Per window of the contained-node CSR (cn_ptr [N + 1], cn_grow), the
+    least node_tail over its nodes, INF40 where it has none: one segmented
+    reduce over the windows that hold a node."""
+    wmin = np.full(len(cn_ptr) - 1, INF40, np.int64)
+    ne = np.flatnonzero(np.diff(cn_ptr))
+    if len(ne):
+        wmin[ne] = np.minimum.reduceat(node_tail[cn_grow], cn_ptr[ne])
+    return wmin
 
 
 def _u32_as_i32(x: torch.Tensor) -> torch.Tensor:
@@ -361,6 +380,7 @@ class DeviceJoinAligner(HashAligner):
         # benchmark), on time.perf_counter; updated from the main thread,
         # the ingest workers and the collect workers, always under the lock
         self.stage_times: Dict[str, float] = collections.defaultdict(float)
+        self.stage_times["setup_derived"] = 0  # 1 once the tables are derived
         self._st_lock = threading.Lock()
 
     def _count(self, key: str, value) -> None:
@@ -368,53 +388,179 @@ class DeviceJoinAligner(HashAligner):
             self.stage_times[key] += value
 
     # -- setup ----------------------------------------------------------
-    def attach_tables(self, tables, index, k: int) -> None:
+    # The index-static set-up tables: functions of the index, k and
+    # _side_constants alone, persisted in the groot.align sidecar (as
+    # "dev" + name) beside HashAligner._ARRAYS and mapped from it. A change
+    # to how any of them is derived bumps HashAligner._SIDE_MAGIC.
+    _DEV_ARRAYS = (
+        "_ah32", "_pe2", "_w_tail_min", "_wr_cnt", "_wr_ptr", "_wr_prow",
+        "_wr_pos", "_rowpos_key", "_tail_hash", "_tail_row", "_tail_a",
+        "_tail_bloom",
+    )
+
+    def derive_tables(self, tables, index, k: int) -> None:
+        """Every persisted table, host and device, without the upload:
+        what `index` writes into the sidecar."""
         super().attach_tables(tables, index, k)
+        self._derive_device_tables()
+
+    def attach_tables(self, tables, index, k: int) -> None:
+        self.derive_tables(tables, index, k)
         self._setup_device()
 
     def try_load(self, index, path: str, k: int):
+        """HashAligner.try_load, whose staleness checks cover the device
+        tables' entries and constants too, then views of the device
+        tables and the upload."""
         t = super().try_load(index, path, k)
-        if t is not None:
-            self._setup_device()
+        if t is None:
+            return None
+        for name in self._DEV_ARRAYS:
+            setattr(self, name, self._side_get(self._side, "dev" + name))
+        self._setup_device()
         return t
 
-    def _device_tables_np(self) -> dict:
-        """The phase-A tables in numpy: flat window hashes ah32 [F] (F =
-        len(ph); low 32 bits of the host hashes, 0 where no k-window
-        starts), path-tail hashes pe2 [R, KA], ph_start, path_len, tfree
-        and rinv1 = rinv[1] as a u32 value."""
+    def _side_constants(self) -> List[int]:
+        # TAIL_MIX is in the stored _tail_hash, and the query keys take it
+        # from the code
+        return super()._side_constants() + [
+            MAXL, KA, TAIL_BLOOM_BITS, zlib.crc32(TAIL_MIX),
+        ]
+
+    def _side_names(self) -> set:
+        return super()._side_names() | {"dev" + n for n in self._DEV_ARRAYS}
+
+    def _sidecar_payload(self) -> Dict[str, np.ndarray]:
+        payload = super()._sidecar_payload()
+        for name in self._DEV_ARRAYS:
+            payload["dev" + name] = getattr(self, name)
+        return payload
+
+    def _derive_device_tables(self) -> None:
+        """Every table of _DEV_ARRAYS from the host arrays, each in one pass
+        over its entries (counted in stage_times["setup_derived"])."""
+        with obs.span("align.setup.derive"):
+            self._derive_phase_a_tables()
+            self._derive_host_tables()
+        self._count("setup_derived", 1)
+
+    def _derive_phase_a_tables(self) -> None:
+        """The phase-A tables in numpy, over all path rows at once: flat
+        window hashes _ah32 [F] (F = len(ph); low 32 bits of the host
+        hashes, 0 where no k-window starts) and path-tail hashes _pe2
+        [R, KA] (0 past the path's start)."""
         k = self.k
-        R = self.R
-        F = len(self.ph)
-        ah = np.zeros(F, dtype=np.uint64)
-        pe = np.zeros((R, KA), dtype=np.uint64)
-        ka = np.arange(KA, dtype=np.int64)
+        plen = self.path_len.astype(np.int64)
+        s = self.ph_start.astype(np.int64)
+        nwin = np.maximum(plen - k + 1, 0)
+        owner = np.repeat(np.arange(self.R), nwin)
+        pos = np.arange(len(owner), dtype=np.int64) - np.repeat(
+            np.cumsum(nwin) - nwin, nwin
+        )
+        at = s[owner] + pos
+        ah = np.zeros(len(self.ph), dtype=np.uint64)
+        w = plen[:, None] - np.arange(KA, dtype=np.int64)[None, :]
+        wc = np.maximum(w, 0)
         with np.errstate(over="ignore"):
-            for r in range(R):
-                plen = int(self.path_len[r])
-                s = int(self.ph_start[r])
-                n = plen - k + 1
-                if n > 0:
-                    pos = np.arange(n, dtype=np.int64)
-                    ah[s : s + n] = (
-                        self.ph[s + pos + k] - self.ph[s + pos]
-                    ) * self.rinv[pos]
-                w = plen - ka
-                valid = w >= 0
-                wv = w[valid]
-                pe[r, valid] = (
-                    self.ph[s + plen] - self.ph[s + wv]
-                ) * self.rinv[wv]
-        return {
-            "ah32": ah.astype(np.uint32).view(np.int32),
-            "pe2": pe.astype(np.uint32).view(np.int32),
-            "ph_start": self.ph_start.astype(np.int32),
-            "path_len": self.path_len.astype(np.int32),
-            "tfree": np.asarray(self.tfree, dtype=bool),
-            "rinv1": int(self.rinv[1]) & M32,
-        }
+            ah[at] = (self.ph[at + k] - self.ph[at]) * self.rinv[pos]
+            pe = (
+                self.ph[s + plen][:, None] - self.ph[s[:, None] + wc]
+            ) * self.rinv[wc]
+        pe[w < 0] = 0
+        self._ah32 = ah.astype(np.uint32).view(np.int32)
+        self._pe2 = pe.astype(np.uint32).view(np.int32)
+
+    def _derive_host_tables(self) -> None:
+        """The host tail's and the row packing's index-static tables."""
+        t = self.tables
+        # per-window min distance of any contained-node position from a
+        # terminal-free path end (gates the dead-end stage-2 tail
+        # routing): computed per NODE first, then min-reduced over each
+        # window's contained nodes; INF40 where there is none
+        plen64 = self.path_len.astype(np.int64)
+        n_nodes = len(self.node_len)
+        owner_n, prow_n, pos_n = self._expand_rows(
+            np.arange(n_nodes, dtype=np.int64)
+        )
+        dist_n = np.where(
+            self.tfree[prow_n], plen64[prow_n] - pos_n, INF40
+        )
+        node_tail = np.full(n_nodes, INF40, np.int64)
+        np.minimum.at(node_tail, owner_n, dist_n)
+        self._w_tail_min = window_tail_min(node_tail, t.cn_ptr, t.cn_grow)
+        # sorted (path row, node position) keys: a stage-2 match at
+        # (row, pos) needs a node starting in [pos-NS, pos] on that row.
+        # The position field is sized from the longest path.
+        self._rowpos_key = np.sort(
+            (prow_n.astype(np.int64) << self._row_pos_shift()) + pos_n
+        )
+        # sorted path-TAIL hash table for the inline stage-2 overhang
+        # lookup (dead-end partial matches, alignment.go:229): key =
+        # hash(path[plen-a : plen]) ^ amix[a] ^ gmix[graph] for every
+        # terminal-free row and overhang length a in [1, min(plen,
+        # MAXL-1)]
+        tf_rows = np.flatnonzero(self.tfree)
+        if len(tf_rows):
+            plen_t = self.path_len[tf_rows].astype(np.int64)
+            av = np.arange(1, MAXL, dtype=np.int64)
+            okg = av[None, :] <= np.minimum(plen_t, MAXL - 1)[:, None]
+            pos_t = np.maximum(plen_t[:, None] - av[None, :], 0)
+            s_t = self.ph_start[tf_rows][:, None]
+            with np.errstate(over="ignore"):
+                th = (
+                    self.ph[s_t + plen_t[:, None]] - self.ph[s_t + pos_t]
+                ) * self.rinv[pos_t]
+                th ^= TAIL_MIX[av][None, :]
+                th ^= self.g_mix[self.path_graph[tf_rows]][:, None]
+            ri, ci = np.nonzero(okg)
+            order = np.argsort(th[ri, ci], kind="stable")
+            self._tail_hash = th[ri, ci][order]
+            self._tail_row = tf_rows[ri[order]].astype(np.int64)
+            self._tail_a = av[ci[order]]
+        else:
+            self._tail_hash = np.empty(0, np.uint64)
+            self._tail_row = np.empty(0, np.int64)
+            self._tail_a = np.empty(0, np.int64)
+        # presence bitmap over the low hash bits: most probes (junk RC
+        # prefixes) die on one bit test instead of a binary search
+        bm = np.zeros(1 << (TAIL_BLOOM_BITS - 3), np.uint8)
+        if len(self._tail_hash):
+            bidx = (
+                self._tail_hash & np.uint64((1 << TAIL_BLOOM_BITS) - 1)
+            ).astype(np.int64)
+            np.bitwise_or.at(
+                bm, bidx >> 3, (1 << (bidx & 7)).astype(np.uint8)
+            )
+        self._tail_bloom = bm
+        # per-window (seed -> path rows) CSR: stage-A row packing becomes
+        # pure gathers at batch time
+        wrr_parts, wro_parts = [], []
+        wr_cnt = np.zeros(t.num_windows, np.int64)
+        NW = t.num_windows
+        for lo in range(0, NW, 1 << 17):
+            hi = min(lo + (1 << 17), NW)
+            owner_w, prow_w, pos_w = self._expand_rows(t.w_seed_grow[lo:hi])
+            wr_cnt[lo:hi] = np.bincount(owner_w, minlength=hi - lo)
+            wrr_parts.append(prow_w.astype(np.int32))
+            wro_parts.append(pos_w.astype(np.int32))
+        self._wr_cnt = wr_cnt
+        self._wr_ptr = np.concatenate(([0], np.cumsum(wr_cnt)))
+        self._wr_prow = (
+            np.concatenate(wrr_parts) if wrr_parts else np.empty(0, np.int32)
+        )
+        self._wr_pos = (
+            np.concatenate(wro_parts) if wro_parts else np.empty(0, np.int32)
+        )
+
+    def _row_pos_shift(self) -> int:
+        return row_pos_shift(
+            int(self.path_len.max()) if self.R else 0, self.R
+        )
 
     def _setup_device(self) -> None:
+        """What every set-up derives, from the host arrays and the device
+        tables: the envelope checks, the wildcard graphs and the one upload
+        of the phase-A tables."""
         t = self.tables
         self._d1 = int(-(-(int(t.w_span.max()) + 1) // 16) * 16) if (
             t.num_windows
@@ -427,9 +573,6 @@ class DeviceJoinAligner(HashAligner):
                 "envelope; all combos run on the host cascade",
                 k, self._d1,
             )
-        self._dev = _tables_to(self._device_tables_np(), self.device)
-        self._dev_copies = {}
-        self._pow32 = None  # (len, rpow32, rinv32) tensors, see _pow_tables
         # graphs containing a path-N (wildcard) -> host fallback combos
         ghasN = np.zeros(self.G + 1, dtype=bool)
         nrows = np.flatnonzero(self.nrow)
@@ -437,103 +580,18 @@ class DeviceJoinAligner(HashAligner):
         self._ghasN = ghasN[: self.G]
         if not self._dev_ok:
             self._ghasN = np.ones_like(self._ghasN)
-        # host npos lookup: row enumeration per (node, path lane)
-        self._npg = np.diff(self.g_first_row).astype(np.int64)
-        # per-window min distance of any contained-node position from a
-        # terminal-free path end (gates the dead-end stage-2 tail
-        # routing): computed per NODE first, then min-reduced over each
-        # window's contained nodes
-        INF40 = np.int64(1) << 40
-        plen64 = self.path_len.astype(np.int64)
-        owner_n, prow_n, pos_n = self._expand_rows(
-            np.arange(len(self.node_len), dtype=np.int64)
+        self._rowpos_shift = self._row_pos_shift()
+        self._tail_bloom_mask = np.uint64((1 << TAIL_BLOOM_BITS) - 1)
+        self._dev = _tables_to(
+            {
+                "ah32": self._ah32, "pe2": self._pe2,
+                "ph_start": self.ph_start, "path_len": self.path_len,
+                "tfree": self.tfree, "rinv1": int(self.rinv[1]),
+            },
+            self.device,
         )
-        dist_n = np.where(
-            self.tfree[prow_n], plen64[prow_n] - pos_n, INF40
-        )
-        node_tail = np.full(len(self.node_len), INF40, np.int64)
-        np.minimum.at(node_tail, owner_n, dist_n)
-        # sorted (path row, node position) keys: a stage-2 match at
-        # (row, pos) needs a node starting in [pos-NS, pos] on that row.
-        # The position field is sized from the longest path.
-        self._rowpos_shift = row_pos_shift(
-            int(plen64.max()) if self.R else 0, self.R
-        )
-        self._rowpos_key = np.sort(
-            (prow_n.astype(np.int64) << self._rowpos_shift) + pos_n
-        )
-        # sorted path-TAIL hash table for the inline stage-2 overhang
-        # lookup (dead-end partial matches, alignment.go:229): key =
-        # hash(path[plen-a : plen]) ^ amix[a] ^ gmix[graph] for every
-        # terminal-free row and overhang length a in [1, min(plen,
-        # MAXL-1)]
-        self._amix = np.array(
-            [_splitmix64(a ^ 0x6A09E667F3BCC909) for a in range(MAXL + 1)],
-            dtype=np.uint64,
-        )
-        tf_rows = np.flatnonzero(self.tfree)
-        if len(tf_rows):
-            plen_t = self.path_len[tf_rows].astype(np.int64)
-            av = np.arange(1, MAXL, dtype=np.int64)
-            okg = av[None, :] <= np.minimum(plen_t, MAXL - 1)[:, None]
-            pos_t = np.maximum(plen_t[:, None] - av[None, :], 0)
-            s_t = self.ph_start[tf_rows][:, None]
-            with np.errstate(over="ignore"):
-                th = (
-                    self.ph[s_t + plen_t[:, None]] - self.ph[s_t + pos_t]
-                ) * self.rinv[pos_t]
-                th ^= self._amix[av][None, :]
-                th ^= self.g_mix[self.path_graph[tf_rows]][:, None]
-            ri, ci = np.nonzero(okg)
-            order = np.argsort(th[ri, ci], kind="stable")
-            self._tail_hash = th[ri, ci][order]
-            self._tail_row = tf_rows[ri[order]].astype(np.int64)
-            self._tail_a = av[ci[order]]
-        else:
-            self._tail_hash = np.empty(0, np.uint64)
-            self._tail_row = np.empty(0, np.int64)
-            self._tail_a = np.empty(0, np.int64)
-        # presence bitmap over the low 27 hash bits: most probes (junk RC
-        # prefixes) die on one bit test instead of a binary search
-        TB = 27
-        bm = np.zeros(1 << (TB - 3), np.uint8)
-        if len(self._tail_hash):
-            bidx = (
-                self._tail_hash & np.uint64((1 << TB) - 1)
-            ).astype(np.int64)
-            np.bitwise_or.at(
-                bm, bidx >> 3, (1 << (bidx & 7)).astype(np.uint8)
-            )
-        self._tail_bloom = bm
-        self._tail_bloom_mask = np.uint64((1 << TB) - 1)
-        n_ent = len(t.cn_grow)
-        went = (
-            np.searchsorted(
-                t.cn_ptr, np.arange(n_ent), side="right"
-            ) - 1
-        )
-        wmin = np.full(t.num_windows, INF40, np.int64)
-        np.minimum.at(wmin, went, node_tail[t.cn_grow])
-        self._w_tail_min = wmin
-        # per-window (seed -> path rows) CSR: stage-A row packing becomes
-        # pure gathers at batch time
-        wrr_parts, wro_parts = [], []
-        wr_cnt = np.zeros(t.num_windows, np.int64)
-        NW = t.num_windows
-        for lo in range(0, NW, 1 << 17):
-            hi = min(lo + (1 << 17), NW)
-            owner_w, prow_w, pos_w = self._expand_rows(t.w_seed_grow[lo:hi])
-            np.add.at(wr_cnt, lo + owner_w, 1)
-            wrr_parts.append(prow_w.astype(np.int32))
-            wro_parts.append(pos_w.astype(np.int32))
-        self._wr_cnt = wr_cnt
-        self._wr_ptr = np.concatenate(([0], np.cumsum(wr_cnt)))
-        self._wr_prow = (
-            np.concatenate(wrr_parts) if wrr_parts else np.empty(0, np.int32)
-        )
-        self._wr_pos = (
-            np.concatenate(wro_parts) if wro_parts else np.empty(0, np.int32)
-        )
+        self._dev_copies = {}
+        self._pow32 = None  # (len, rpow32, rinv32) tensors, see _pow_tables
 
     def _pow_tables(self, L: int):
         """rpow/rinv truncated to 32 bits (int32 bit patterns) on the
@@ -566,7 +624,7 @@ class DeviceJoinAligner(HashAligner):
         """(item, node) -> flat (item, path) rows where the node lies on
         the path: returns (owner, prow, pos) with pos >= 0."""
         gi = self.node_g[nodes]
-        npg = self._npg[gi]
+        npg = np.diff(self.g_first_row)[gi]
         total = int(npg.sum())
         owner = np.repeat(np.arange(len(nodes)), npg)
         starts = np.concatenate(([0], np.cumsum(npg[:-1])))
@@ -926,7 +984,7 @@ class DeviceJoinAligner(HashAligner):
                 with np.errstate(over="ignore"):
                     keys = (
                         cum[urd][:, av - 1]
-                        ^ self._amix[av][None, :]
+                        ^ TAIL_MIX[av][None, :]
                         ^ self.g_mix[(uq % self.G)][:, None]
                     )
                 okq = av[None, :] <= (lb2 - 1)[:, None]

@@ -72,7 +72,7 @@ def _index_fingerprint(index, k: int) -> np.ndarray:
     import zlib
 
     sk = np.ascontiguousarray(index.sketches)
-    crc = zlib.crc32(sk.tobytes())
+    crc = zlib.crc32(sk)  # the buffer itself: no copy of the matrix
     s = sk.shape[1] if sk.ndim > 1 else 0
     return np.array([crc, len(sk), s, k], dtype=np.int64)
 
@@ -140,7 +140,9 @@ class HashAligner:
         self._rc_trans = bytes(tab)
         self._rc_lut = np.frombuffer(self._rc_trans, np.uint8)
 
-    # array attributes persisted in the groot.align sidecar
+    # array attributes persisted in the groot.align sidecar (the two
+    # prefix bucket indexes are functions of the anchor and mini tables and
+    # of io.native.PREF_BITS)
     _ARRAYS = (
         "path_graph", "path_pid", "path_len", "tfree", "flat_start",
         "flat_codes", "rpow", "rinv", "ph", "ph_start", "nrow",
@@ -148,7 +150,7 @@ class HashAligner:
         "anchor_hash", "anchor_row", "anchor_pos",
         "len_mix", "g_mix", "mini_hash", "mini_row", "mini_pos", "mini_typ",
         "node_len", "node_g", "g_first_row", "node_base", "npos_dense",
-        "ref_id_by_prow",
+        "ref_id_by_prow", "_anchor_pref", "_mini_pref",
     )
 
     _WT_ARRAYS = (
@@ -156,7 +158,36 @@ class HashAligner:
         "w_multi", "w_seed_grow", "cn_ptr", "cn_grow", "cn_share", "cn_cnt",
     )
 
-    _SIDE_MAGIC = b"GROOTALN2\x00"
+    _SIDE_MAGIC = b"GROOTALN3\x00"
+
+    def _side_constants(self) -> List[int]:
+        """The code constants the persisted tables depend on, stored in the
+        sidecar's `_scalars` after (R, G, k, pos_bits). A subclass appends
+        its own, so a file it wrote still loads here: try_load compares the
+        leading constants this class knows, and a sidecar written under
+        others is stale."""
+        from ..io.native import PREF_BITS
+
+        return [PREF_BITS]
+
+    def _side_names(self) -> set:
+        """The sidecar entries try_load needs; a file without one is
+        stale."""
+        return (
+            set(self._ARRAYS) | {"wt_" + n for n in self._WT_ARRAYS}
+            | {"_fingerprint", "_scalars"}
+        )
+
+    def _sidecar_payload(self) -> Dict[str, np.ndarray]:
+        payload = {name: getattr(self, name) for name in self._ARRAYS}
+        for name in self._WT_ARRAYS:
+            payload["wt_" + name] = getattr(self.tables, name)
+        payload["_scalars"] = np.array(
+            [self.R, self.G, self.k, self._pos_bits] + self._side_constants(),
+            dtype=np.int64,
+        )
+        payload["_fingerprint"] = self._fingerprint
+        return payload
 
     def save_arrays(self, path: str) -> None:
         """Persist the setup arrays (pure functions of the index + k) plus
@@ -164,19 +195,14 @@ class HashAligner:
         packing/hashing entirely (the groot.align sidecar). Format: magic +
         pickled {name: (dtype, shape, offset)} header + 64-byte-aligned raw
         array blobs — loads as ONE sequential read + np.frombuffer views
-        (no zipfile/crc32 pass as np.savez would need)."""
+        (no zipfile/crc32 pass as np.savez would need). Written beside
+        `path` and moved over it, so a reader never sees half a file."""
         import pickle
         import struct as _struct
 
-        payload = {name: getattr(self, name) for name in self._ARRAYS}
-        for name in self._WT_ARRAYS:
-            payload["wt_" + name] = getattr(self.tables, name)
-        payload["_scalars"] = np.array(
-            [self.R, self.G, self.k, self._pos_bits], dtype=np.int64
-        )
-        payload["_fingerprint"] = self._fingerprint
         payload = {
-            k_: np.ascontiguousarray(v) for k_, v in payload.items()
+            k_: np.ascontiguousarray(v)
+            for k_, v in self._sidecar_payload().items()
         }
         meta = {}
         off = 0
@@ -191,34 +217,36 @@ class HashAligner:
         # (pickle ignores bytes after the STOP opcode)
         pre = len(self._SIDE_MAGIC) + 8
         hdr += b"\x00" * (-(pre + len(hdr)) % 64)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as fh:
-            fh.write(self._SIDE_MAGIC)
-            fh.write(_struct.pack("<q", len(hdr)))
-            fh.write(hdr)
-            base = fh.tell()
-            for name, arr in payload.items():
-                pos = base + meta[name][2]
-                fh.seek(pos)
-                fh.write(arr.tobytes())
-        os.replace(tmp, path)
+        # a file of this process's own: align calls on one index at once
+        # each write theirs whole, and the last move wins
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "wb") as fh:
+                fh.write(self._SIDE_MAGIC)
+                fh.write(_struct.pack("<q", len(hdr)))
+                fh.write(hdr)
+                base = fh.tell()
+                for name, arr in payload.items():
+                    fh.seek(base + meta[name][2])
+                    fh.write(memoryview(arr).cast("B"))  # no copy
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
 
-    def try_load(self, index, path: str, k: int):
-        """Load the groot.align sidecar; returns the reconstructed
-        WindowTables, or None when absent/stale. Staleness is detected by
-        the index fingerprint stored in the sidecar (a sidecar written for
-        a different/rebuilt groot.lshe, or a different k, is rejected)."""
+    @classmethod
+    def _map_sidecar(cls, path: str):
+        """(mapping, blob base, {name: (dtype, shape, offset)}) of a sidecar
+        in this format, or None (absent, unreadable or another format)."""
+        import mmap as _mmap
         import pickle
         import struct as _struct
 
-        from .batch_host import WindowTables
-
-        import mmap as _mmap
-
         try:
             with open(path, "rb") as fh:
-                magic = fh.read(len(self._SIDE_MAGIC))
-                if magic != self._SIDE_MAGIC:
+                magic = fh.read(len(cls._SIDE_MAGIC))
+                if magic != cls._SIDE_MAGIC:
                     return None  # old/foreign format -> rebuild
                 (hlen,) = _struct.unpack("<q", fh.read(8))
                 meta = pickle.loads(fh.read(hlen))
@@ -238,22 +266,44 @@ class HashAligner:
                     base = 0
         except (OSError, ValueError, EOFError, pickle.UnpicklingError):
             return None
+        return blob, base, meta
+
+    @staticmethod
+    def _side_get(side, name: str) -> np.ndarray:
+        """A read-only view of array `name` of a mapped sidecar."""
+        blob, base, meta = side
+        dt, shape, off = meta[name]
+        n = int(np.prod(shape)) if shape else 1
+        a = np.frombuffer(blob, dtype=np.dtype(dt), count=n, offset=base + off)
+        return a.reshape(shape)
+
+    def try_load(self, index, path: str, k: int):
+        """Load the groot.align sidecar; returns the reconstructed
+        WindowTables, or None when absent/stale. Staleness is detected by
+        the index fingerprint stored in the sidecar (a sidecar written for
+        a different/rebuilt groot.lshe, or a different k, is rejected) and
+        by the code constants in its `_scalars`; a file without every entry
+        of _side_names is stale too. Entries this class does not know are
+        left alone."""
+        import mmap as _mmap
+
+        from .batch_host import WindowTables
+
+        side = self._map_sidecar(path)
+        if side is None:
+            return None
+        blob, _base, meta = side
+
         def discard():
             if isinstance(blob, _mmap.mmap):
                 blob.close()
             return None
 
-        need = set(self._ARRAYS) | {"wt_" + n for n in self._WT_ARRAYS}
-        if (need - set(meta)) or "_fingerprint" not in meta:
+        if self._side_names() - set(meta):
             return discard()
 
         def get(name):
-            dt, shape, off = meta[name]
-            n = int(np.prod(shape)) if shape else 1
-            a = np.frombuffer(
-                blob, dtype=np.dtype(dt), count=n, offset=base + off
-            )
-            return a.reshape(shape)
+            return self._side_get(side, name)
 
         expect = _index_fingerprint(index, int(k))
         if not np.array_equal(get("_fingerprint"), expect):
@@ -262,18 +312,19 @@ class HashAligner:
                 "rebuilding alignment tables"
             )
             return discard()  # don't retain a stale mapping
-        self._side_mmap = blob  # keep the mapping alive with the views
+        scalars = [int(x) for x in get("_scalars")]
+        own = self._side_constants()
+        if scalars[4 : 4 + len(own)] != own:
+            return discard()
+        self._side = side  # keeps the mapping alive with the views
         self._fingerprint = expect
-        data = {name: get(name) for name in need}
         for name in self._ARRAYS:
-            setattr(self, name, data[name])
-        self.R, self.G, self.k, self._pos_bits = (
-            int(x) for x in get("_scalars")
-        )
+            setattr(self, name, get(name))
+        self.R, self.G, self.k, self._pos_bits = scalars[:4]
         self._finish_setup()
         tables = WindowTables.__new__(WindowTables)
         for name in self._WT_ARRAYS:
-            setattr(tables, name, data["wt_" + name])
+            setattr(tables, name, get("wt_" + name))
         tables.num_windows = len(tables.w_graph)
         tables.num_nodes = len(tables.node_table)
         self.tables = tables
@@ -508,6 +559,10 @@ class HashAligner:
                 grow += 1
         self.npos_dense = npos_dense
 
+        from ..io.native import _prefix16
+
+        self._anchor_pref = _prefix16(self.anchor_hash)
+        self._mini_pref = _prefix16(self.mini_hash)
         self._finish_setup()
 
         # global BAM ref id per path row (build_references numbering)
@@ -525,15 +580,11 @@ class HashAligner:
             self.ref_id_by_prow = None
 
     def _finish_setup(self) -> None:
-        """Shared-table epilogue for attach_tables/try_load: the 16-bit
-        prefix bucket indexes (io.native) built eagerly, plus the locks the
-        pooled batch workers need (align_pipeline._run_align_pooled)."""
+        """Shared epilogue for attach_tables/try_load: the widest graph and
+        the locks the pooled batch workers need
+        (align_pipeline._run_align_pooled)."""
         import threading
 
-        from ..io.native import _prefix16
-
-        self._anchor_pref = _prefix16(self.anchor_hash)
-        self._mini_pref = _prefix16(self.mini_hash)
         self._max_paths = (
             int(np.diff(self.g_first_row).max()) if self.G else 1
         )

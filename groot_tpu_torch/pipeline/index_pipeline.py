@@ -184,16 +184,20 @@ def run_index(info: Info, msa_dir: str, device) -> None:
     info.dump(os.path.join(info.index_dir, "groot.gg"))
 
     # groot.align sidecar: the aligner's setup arrays are pure functions of
-    # the index, so build them once here instead of on every align startup
+    # the index, so build them once here instead of on every align startup.
+    # The device engine's tables are a superset of the hash engine's, and
+    # are only derived here, not uploaded.
     try:
         from ..align.batch_host import WindowTables
 
-        from ..align.hash_join import HashAligner
+        from ..align.device_join import DeviceJoinAligner
         from ..io.bam import build_references
 
-        aligner = HashAligner(info.store, build_references(info.store))
+        aligner = DeviceJoinAligner(
+            info.store, build_references(info.store), device="cpu"
+        )
         tables = WindowTables(index, info.store)
-        aligner.attach_tables(tables, index, info.kmer_size)
+        aligner.derive_tables(tables, index, info.kmer_size)
         aligner.save_arrays(os.path.join(info.index_dir, "groot.align"))
     except Exception as e:  # pragma: no cover - cache is best-effort
         log.warning("could not precompute the align sidecar: %s", e)
